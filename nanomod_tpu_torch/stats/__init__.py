@@ -1,0 +1,1 @@
+"""Subpackage of nanomod_tpu_torch; import its modules directly."""
