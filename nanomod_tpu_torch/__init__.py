@@ -3,14 +3,18 @@
 The JAX package ``nanomod_tpu`` stays the reference.  This package runs the
 same main path, ``Annotate`` (raw FAST5 -> corrected FAST5) then ``detect``
 (two corrected groups -> ``<FileID>_sign_test.txt`` and a ranked site list),
-on one NVIDIA Hopper card:
+and the evaluation harness on one NVIDIA Hopper card:
 
   * resquiggle/ — k-mer seeding, the banded affine-gap DP (CUDA kernel K1),
     the device traceback walk (CUDA kernel K2), the native correction core
     and FAST5 write-back;
-  * stats/      — the per-position test battery (CUDA kernel K3) and the
-    float64 host finalizers, neighbor p-value combination;
+  * stats/      — the per-position test battery (CUDA kernel K3), the
+    coverage-capped KS (CUDA kernel K6, with a bit-exact replica of its
+    ``jax.random`` draws), the float64 host finalizers, neighbor p-value
+    combination;
   * rank/       — site ranking;
+  * harness/    — the simulate / simulat2 / DownSampling mixing trials;
+  * native.py   — race-free build and load of the reference's C++ libraries;
   * detect.py, cli.py — the entry points.
 
 It reuses by import only the reference modules that load no JAX

@@ -1,22 +1,29 @@
-"""Command-line interface of the port: the ``Annotate`` and ``detect``
-subcommands of nanomod_tpu.cli, with the same flags plus ``--device``
-(default ``cuda``)::
+"""Command-line interface of the port: the five subcommands of
+nanomod_tpu.cli, with the same flags plus ``--device`` (default ``cuda``)::
 
     python -m nanomod_tpu_torch.cli Annotate --wrkBase1 READS --Ref ref.fa
     python -m nanomod_tpu_torch.cli detect --wrkBase1 CTRL --wrkBase2 CASE
+    python -m nanomod_tpu_torch.cli simulate --wrkBase1 ... --Percentages 0.3,0.5
+    python -m nanomod_tpu_torch.cli simulat2 --Percentage 0.2 --CaseSize 2000
+    python -m nanomod_tpu_torch.cli DownSampling --CaseSize 100
 
-``--metricsFile`` writes per-stage timings and the CUDA kernels' launch
-counts as JSON.  detect makes no plots here (``--plotType`` is accepted
-and unused).
+``--metricsFile`` (Annotate, detect) writes per-stage timings and the CUDA
+kernels' launch counts as JSON.  Plots are not ported: detect accepts
+``--plotType`` and draws nothing, and the harness writes every ``.output``
+/ ``.done`` file but prints a line instead of drawing ``hist_<FileID>.png``.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import glob
+import os
+
 from nanomod_tpu.config import (OUTPUT_DEBUG, OUTPUT_ERROR, OUTPUT_INFO,
                                 OUTPUT_WARNING, AnnotateConfig, DetectConfig,
-                                RankConfig, StatConfig, replace)
+                                RankConfig, SimulateConfig, StatConfig,
+                                replace)
 
 
 def _common(parser):
@@ -100,6 +107,76 @@ def cmd_detect(a):
         print(f"Rank {s.rank}: {s.chrom} {s.strand} {s.pos + 1} {s.base}")
 
 
+def _sim_cfg(a, percentages=(0.3,), percentage=0.3) -> SimulateConfig:
+    return SimulateConfig(
+        wrk_base1=a.wrkBase1, wrk_base2=a.wrkBase2,
+        wrk_base3=getattr(a, "wrkBase3", None),
+        out_folder=a.outFolder, file_id=a.FileID, out_level=a.outLevel,
+        percentages=tuple(percentages), percentage=percentage,
+        case_size=getattr(a, "CaseSize", None),
+        run_type=getattr(a, "runType", 2),
+        foldersep=getattr(a, "foldersep", 3),
+        min_coverage=a.MinCoverage,
+        stats=_stat_cfg(a), rank=_rank_cfg(a),
+    )
+
+
+def _no_histogram(cfg: SimulateConfig):
+    """Where the reference draws the rank histogram (matplotlib), say that
+    it is not drawn."""
+    print(f"hist_{cfg.file_id}.png not drawn: plots are not ported "
+          f"(the .output files are in {cfg.out_folder})")
+
+
+def _output_ids(out_folder: str, prefix: str = "") -> list:
+    return [os.path.basename(p)[:-7] for p in
+            glob.glob(os.path.join(out_folder, f"{prefix}*.output"))]
+
+
+def cmd_simulate(a):
+    from nanomod_tpu_torch.harness.simulate import (merge_grid_outputs,
+                                                    run_simulate,
+                                                    run_simulate_grid)
+    percs = sorted(float(x) for x in a.Percentages.split(","))
+    cfg = _sim_cfg(a, percentages=percs)
+    if a.wrkBase3 is None:
+        # grid mode (ref mySimulate.py:344-467): the subfolder-pair grid
+        fids, _ = run_simulate_grid(cfg, device=a.device)
+        merge_grid_outputs(cfg, fids)
+    else:
+        run_simulate(cfg, device=a.device)
+    _no_histogram(cfg)
+
+
+def cmd_simulat2(a):
+    from nanomod_tpu_torch.harness.simulate import (run_simulat2,
+                                                    run_simulat2_sweep,
+                                                    summarize_outputs)
+    cfg = _sim_cfg(a, percentage=a.Percentage or 0.2)
+    if a.runType == 2:
+        run_simulat2(cfg, device=a.device)
+    elif a.runType == 1:
+        run_simulat2_sweep(cfg, device=a.device)
+    else:
+        summarize_outputs(cfg.out_folder, _output_ids(cfg.out_folder))
+        _no_histogram(cfg)
+
+
+def cmd_downsampling(a):
+    from nanomod_tpu_torch.harness.simulate import (run_downsampling,
+                                                    run_downsampling_sweep,
+                                                    summarize_outputs)
+    cfg = _sim_cfg(a)
+    if a.runType == 2:
+        run_downsampling(cfg, device=a.device)
+    elif a.runType == 1:
+        run_downsampling_sweep(cfg, device=a.device)
+    else:
+        summarize_outputs(cfg.out_folder,
+                          _output_ids(cfg.out_folder, a.mprefix or cfg.file_id))
+        _no_histogram(cfg)
+
+
 def cmd_annotate(a):
     from nanomod_tpu_torch.resquiggle.pipeline import annotate_folder
     cfg = AnnotateConfig(
@@ -153,6 +230,37 @@ def build_parser():
                         "process, is ported)")
     _device_arg(p)
     p.set_defaults(func=cmd_detect)
+
+    p = sub.add_parser("simulate", help="percentage-mixing simulation")
+    _common(p)
+    p.add_argument("--wrkBase2")
+    p.add_argument("--wrkBase3",
+                   help="second control folder (worker mode); omit to run "
+                        "the subfolder-pair grid over wrkBase1/wrkBase2")
+    p.add_argument("--Percentages", type=str, default="0.3")
+    p.add_argument("--foldersep", type=int, default=3,
+                   help="control-test subfolder offset in grid mode "
+                        "(mk = (mi + foldersep) %% n_control_subfolders)")
+    _device_arg(p)
+    p.set_defaults(func=cmd_simulate)
+
+    p = sub.add_parser("simulat2", help="case-size scaling simulation")
+    _common(p)
+    p.add_argument("--wrkBase2")
+    p.add_argument("--Percentage", type=float, default=None)
+    p.add_argument("--CaseSize", type=int, default=None)
+    p.add_argument("--runType", type=int, default=2, choices=[1, 2, 3])
+    _device_arg(p)
+    p.set_defaults(func=cmd_simulat2)
+
+    p = sub.add_parser("DownSampling", help="coverage-scaling simulation")
+    _common(p)
+    p.add_argument("--wrkBase2")
+    p.add_argument("--CaseSize", type=int, default=None)
+    p.add_argument("--runType", type=int, default=2, choices=[1, 2, 3])
+    p.add_argument("--mprefix", type=str, default="")
+    _device_arg(p)
+    p.set_defaults(func=cmd_downsampling)
 
     p = sub.add_parser("Annotate", help="resquiggle reads against a reference")
     p.add_argument("--outLevel", type=int, default=OUTPUT_WARNING)

@@ -62,10 +62,12 @@ def ingest_group(folder: str, cfg: DetectConfig,
     """Walk a group folder, read corrected events with the native reader
     (fast5_ingest.cpp), build position pools."""
     from nanomod_tpu.native.fast5_bind import read_corrected_batch
+    from nanomod_tpu_torch.native import require
 
     if not cfg.native_ingest:
         raise NotImplementedError("detect needs native_ingest=True: the "
                                   "h5py ingest is not ported")
+    require("fast5_ingest", "sort_core")
     start_end = None
     pos_filter = None
     if cfg.pos is not None and cfg.pos2 is None:
@@ -205,6 +207,8 @@ def save_sign_test(table: SignTable, cfg: DetectConfig) -> str:
     native_ok = False
     if cfg.native_ingest:
         from nanomod_tpu.native.format_bind import write_sign_test_native
+        from nanomod_tpu_torch.native import require
+        require("format_core")
         native_ok = write_sign_test_native(table, path, has_comb,
                                            nthreads=cfg.num_workers)
     if not native_ok:

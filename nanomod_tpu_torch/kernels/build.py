@@ -39,7 +39,7 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches made by its wrapper in this process
-LAUNCHES = {"banded_sw": 0, "walk": 0, "battery": 0}
+LAUNCHES = {"banded_sw": 0, "walk": 0, "battery": 0, "capped_ks": 0}
 
 _LOCK = threading.Lock()
 _LIB = {}
@@ -48,6 +48,7 @@ BUILD_INFO = {"seconds": None, "rebuilt": False, "log": BUILD_LOG}
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
 _f = ctypes.c_float
+_u = ctypes.c_uint
 _SIGNATURES = {
     # read, ref, lens, tb, best, bi, bk, bsz, m, w, match, mismatch, go, ge,
     # stream
@@ -57,6 +58,13 @@ _SIGNATURES = {
     "nm_walk": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     # v1, c1, C1, v2, c2, C2, P, is_i16, milli, out, stream
     "nm_battery": [_vp, _vp, _i, _vp, _vp, _i, _i, _i, _i, _vp, _vp],
+    # v1, c1, C1, v2, c2, C2, row_index, P, cov, repeats, q_idx, seed_hi,
+    # seed_lo, is_i16, out, stream
+    "nm_capped_ks": [_vp, _vp, _i, _vp, _vp, _i, _vp, _i, _i, _i, _i, _u,
+                     _u, _i, _vp, _vp],
+    # counts, row_index, P, repeats * cov, seed_hi, seed_lo, group, out,
+    # stream
+    "nm_capped_draws": [_vp, _vp, _i, _i, _u, _u, _i, _vp, _vp],
 }
 
 

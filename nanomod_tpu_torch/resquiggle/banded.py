@@ -258,11 +258,8 @@ def decode_walk(codes_row: np.ndarray, best_i: int, best_k: int):
 
 
 def _traceback_lib():
-    from nanomod_tpu.native.build import load_native
-    lib = load_native("traceback")
-    if lib is None:
-        raise RuntimeError("native library 'traceback' failed to build or "
-                           "load (needs g++)")
+    from nanomod_tpu_torch.native import require
+    lib, = require("traceback")
     return lib
 
 

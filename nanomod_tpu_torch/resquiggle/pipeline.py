@@ -152,6 +152,9 @@ def prepare_batch(paths: List[str], cfg: AnnotateConfig,
     from nanomod_tpu.native.prepare_bind import (model_tables,
                                                  native_prepare_batch)
     from nanomod_tpu.utils.observe import stage
+    from nanomod_tpu_torch.native import require
+
+    require("fast5_ingest")
     errors = defaultdict(list)
     prepared = []
     workers = _host_workers(cfg)
@@ -310,19 +313,14 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
-    from nanomod_tpu.native.annotate_bind import (_batch_lib,
-                                                  annotate_codes_batch_native)
-    from nanomod_tpu.native.build import native_available
+    from nanomod_tpu.native.annotate_bind import annotate_codes_batch_native
     from nanomod_tpu.utils.observe import stage
+    from nanomod_tpu_torch.native import require
 
     _check_supported(cfg)
-    if _batch_lib() is None:
-        raise RuntimeError("native library 'annotate_core' failed to build "
-                           "or load (needs g++)")
     use_native_write = cfg.fast5_compression == "gzip"
-    if use_native_write and not native_available("fast5_write"):
-        raise RuntimeError("native library 'fast5_write' failed to build "
-                           "or load (needs g++ and zlib headers)")
+    require("annotate_core", "traceback",
+            *(("fast5_write",) if use_native_write else ()))
     errors = defaultdict(list)
     chunk_iter = iter([prepared]) if isinstance(prepared, list) \
         else iter(prepared)

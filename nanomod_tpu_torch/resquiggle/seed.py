@@ -125,7 +125,7 @@ class SeedIndex:
         unavailable (callers fall back to per-read best_band)."""
         import ctypes
 
-        from nanomod_tpu.native.build import load_native
+        from nanomod_tpu_torch.native import load_native
         lib = load_native("seed_core")
         if lib is None or not seqs:
             return None

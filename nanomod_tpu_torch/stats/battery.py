@@ -8,8 +8,9 @@ transforms run on the host (stats/special.py).
 ``backend`` is "device" (K3 on the given device; the default) or "host"
 (the native sort_core.cpp battery), chosen by argument or by the
 NANOMOD_BATTERY_BACKEND environment variable; an unknown value raises.
-The coverage-capped KS (``StatConfig.coverages != (0, 0)``) needs kernel K6,
-not yet ported, and raises NotImplementedError.
+The coverage-capped KS (``StatConfig.coverages != (0, 0)``) runs kernel K6
+(stats/kernels.capped_ks_d) on the device for both backends, so both draw
+the same subsamples.
 """
 
 from __future__ import annotations
@@ -94,6 +95,14 @@ def _tile_slice(values, counts, lo, hi, cap, p_tile):
     v = np.zeros((p_tile, cap), dtype=chunk.dtype)
     v[: hi - lo, :w] = chunk
     return v, c
+
+
+def _to_pinned(t: torch.Tensor) -> torch.Tensor:
+    """Start a non-blocking copy of a device tensor into pinned host
+    memory; the caller records an event to wait on before reading it."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def to_device_tile(values: np.ndarray, counts: np.ndarray, device):
@@ -233,11 +242,6 @@ def resolve_backend(backend: str | None = None) -> str:
     return backend
 
 
-def _require_uncapped(coverages):
-    if tuple(coverages) != (0, 0):
-        raise NotImplementedError("capped KS: kernel K6 not yet ported")
-
-
 def host_components(values1, counts1, values2, counts2, idx1=None,
                     idx2=None):
     """Exact integer battery components from the native host battery
@@ -248,7 +252,7 @@ def host_components(values1, counts1, values2, counts2, idx1=None,
     idx1/idx2 gather battery row r from pool row idx*[r] inside the call."""
     import ctypes
 
-    from nanomod_tpu.native.build import load_native
+    from nanomod_tpu_torch.native import load_native
     lib = load_native("sort_core")
     if lib is None or not hasattr(lib, "nm_battery_milli"):
         return None
@@ -313,19 +317,73 @@ def _nthreads() -> int:
         return os.cpu_count() or 1
 
 
+def _quantile_idx(cfg: StatConfig) -> int:
+    """The selected repeat, int(downsampling * quantile); a quantile of 1
+    takes the last, as the reference's clamped index does."""
+    return min(int(cfg.downsampling * cfg.downsampling_quantile),
+               cfg.downsampling - 1)
+
+
+def _capped_ks_numerators(values1, counts1, values2, counts2, cov, cfg,
+                          row_offset, tile_positions, device,
+                          idx1=None, idx2=None) -> np.ndarray | None:
+    """Capped-KS numerators for the rows above the per-strand cap,
+    scattered into a full-length int32 array (the other rows stay 0 and
+    are never read by the finalizer); None when no row is capped.
+
+    Always computed on ``device`` (K6, or its plain version on a CPU
+    device): the draws are keyed per absolute row (``row_offset + row``),
+    so host- and device-backend runs draw the same subsamples.  Only the
+    capped rows are gathered and shipped.
+    """
+    idx = np.nonzero((counts1 > cov) | (counts2 > cov))[0]
+    if len(idx) == 0:
+        return None
+    device = resolve_device(device)
+    out = np.zeros(len(counts1), dtype=np.int32)
+    for lo in range(0, len(idx), tile_positions):
+        rows = idx[lo: lo + tile_positions]
+        p_tile = _round_up(len(rows), 8)
+        g1 = values1[rows if idx1 is None else idx1[rows]]
+        g2 = values2[rows if idx2 is None else idx2[rows]]
+        n1 = np.zeros(p_tile, np.int32)
+        n2 = np.zeros(p_tile, np.int32)
+        n1[: len(rows)] = counts1[rows]
+        n2[: len(rows)] = counts2[rows]
+        v1 = np.zeros((p_tile, g1.shape[1]), g1.dtype)
+        v2 = np.zeros((p_tile, g2.shape[1]), g2.dtype)
+        v1[: len(rows)] = g1
+        v2[: len(rows)] = g2
+        row_index = np.zeros(p_tile, np.int32)
+        row_index[: len(rows)] = row_offset + rows
+        v1d, n1d = to_device_tile(v1, np.maximum(n1, 1), device)
+        v2d, n2d = to_device_tile(v2, np.maximum(n2, 1), device)
+        cap = kernels.capped_ks_d(
+            v1d, n1d, v2d, n2d, to_device(row_index, device), cov=cov,
+            repeats=cfg.downsampling, quantile_idx=_quantile_idx(cfg),
+            seed=cfg.downsampling_seed)
+        out[rows] = cap.cpu().numpy()[: len(rows)]
+    return out
+
+
 def _run_battery_host(values1, counts1, values2, counts2, cov, cfg,
-                      want_mstd, row_offset, tile_positions,
+                      want_mstd, row_offset, tile_positions, device,
                       idx1=None, idx2=None):
     """Native host battery: bit-identical exact integer components computed
-    on the host (host_components), finalized in float64.  Returns a
-    TestResult, or None when the native path cannot be used."""
-    _require_uncapped(cfg.coverages)
+    on the host (host_components), finalized in float64; the capped KS on
+    ``device``.  Returns a TestResult, or None when the native path cannot
+    be used."""
     comp = host_components(values1, counts1, values2, counts2, idx1, idx2)
     if comp is None:
         return None
     c1 = np.ascontiguousarray(counts1, dtype=np.int32)
     c2 = np.ascontiguousarray(counts2, dtype=np.int32)
     p = len(c1)
+    cap_np = None
+    if cov > 0:
+        cap_np = _capped_ks_numerators(values1, c1, values2, c2, cov, cfg,
+                                       row_offset, tile_positions, device,
+                                       idx1=idx1, idx2=idx2)
     nthreads = _nthreads()
     ks, trs, ties = comp["ks_num"], comp["two_rank_sum"], comp["tie_sum"]
     s1, sq1, s2, sq2 = (comp["sum1"], comp["sumsq1"], comp["sum2"],
@@ -339,7 +397,8 @@ def _run_battery_host(values1, counts1, values2, counts2, cov, cfg,
         sl = slice(lo, hi)
         cols = finalize_exact_components(
             ks[sl], trs[sl], ties[sl], c1[sl], c2[sl],
-            s1[sl], sq1[sl], s2[sl], sq2[sl], None, cov, want_mstd)
+            s1[sl], sq1[sl], s2[sl], sq2[sl],
+            None if cap_np is None else cap_np[sl], cov, want_mstd)
         for k in out:
             out[k][sl] = cols[k]
         if want_mstd:
@@ -380,19 +439,21 @@ def run_battery(
     int32 (padding content is ignored).  ``backend`` "device" computes the
     exact integer components with K3 on ``device`` (the plain version on a
     CPU device); "host" uses the native host battery.  Both give
-    bit-identical statistics.  ``idx1``/``idx2`` gather battery row r from
-    pool row idx*[r].  ``row_offset`` is accepted for the reference's
-    signature; it only keys the capped-KS subsampling, which is not ported.
+    bit-identical statistics.  ``strand`` selects the per-strand coverage
+    cap; where a position exceeds it, the capped KS runs K6 on ``device``
+    for either backend.  ``row_offset`` is added to the capped KS's row
+    index: a caller holding rows [off, off + P) of a larger join draws the
+    subsamples the whole join draws for them.  ``idx1``/``idx2`` gather
+    battery row r from pool row idx*[r].
     """
     p_total = len(counts1)
     _check_i32_bounds(counts1, counts2)
     backend = resolve_backend(backend)
     cov = int(cfg.coverages[0 if strand == "+" else 1])
-    _require_uncapped(cfg.coverages)
     if backend == "host":
         res = _run_battery_host(values1, counts1, values2, counts2, cov,
                                 cfg, want_mstd, row_offset, tile_positions,
-                                idx1=idx1, idx2=idx2)
+                                device, idx1=idx1, idx2=idx2)
         if res is None:
             raise RuntimeError(
                 "host battery unavailable: native library 'sort_core' "
@@ -440,21 +501,32 @@ def run_battery(
                 v1d, cn1d, v2d, cn2d)
         else:
             comp = kernels.battery_components_packed(v1d, cn1d, v2d, cn2d)
+        cap = None
+        if cov > 0 and bool(((n1 > cov) | (n2 > cov)).any()):
+            # the row index keys the draws per absolute row, so they do not
+            # depend on tile_positions
+            row_index = to_device(np.arange(
+                row_offset + lo, row_offset + lo + len(cn1d),
+                dtype=np.int32), device)
+            cap = kernels.capped_ks_d(
+                v1d, cn1d, v2d, cn2d, row_index, cov=cov,
+                repeats=cfg.downsampling, quantile_idx=_quantile_idx(cfg),
+                seed=cfg.downsampling_seed)
         event = None
         if on_cuda:
-            host = torch.empty(comp.shape, dtype=comp.dtype, pin_memory=True)
-            host.copy_(comp, non_blocking=True)
+            comp, cap = (None if t is None else _to_pinned(t)
+                         for t in (comp, cap))
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
-            comp = host
-        return lo, hi, n1, n2, comp, event, is_milli
+        return lo, hi, n1, n2, comp, cap, event, is_milli
 
     def finalize(rec):
         """Wait for one tile's result + host float64 finalization."""
-        lo, hi, n1, n2, comp, event, is_milli = rec
+        lo, hi, n1, n2, comp, cap, event, is_milli = rec
         if event is not None:
             event.synchronize()
-        cols = finalize_packed(comp.numpy(), hi - lo, n1, n2, None, cov,
+        cols = finalize_packed(comp.numpy(), hi - lo, n1, n2,
+                               None if cap is None else cap.numpy(), cov,
                                is_milli, want_mstd)
         for k in ("stu", "pu", "stt", "pt", "stks", "pks"):
             out[k][lo:hi] = cols[k]

@@ -10,7 +10,9 @@ formulation).  For a tile of positions
 pairwise <= / < counts of each pooled value against each group, exact in
 int32.  ``battery_rows`` dispatches on the device of its tensors: the plain
 PyTorch version ``battery_rows_plain`` for CPU tensors, kernel K3
-(csrc/battery.cu) for CUDA tensors.  The float64 host finalizers
+(csrc/battery.cu) for CUDA tensors.  ``capped_ks_d``, the coverage-capped
+KS, dispatches the same way between ``capped_ks_d_plain`` and kernel K6
+(csrc/capped_ks.cu).  The float64 host finalizers
 (``mwu_from_components``, ``welch_finalize_exact``, ``welch_finalize``) are
 the reference's.
 """
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from nanomod_tpu_torch.kernels import build as kbuild
+from nanomod_tpu_torch.stats import threefry
 
 # compare elements per chunk of the plain version (bounds its memory)
 _PLAIN_CHUNK_ELEMS = 1 << 25
@@ -189,6 +192,180 @@ def battery_components_packed(values1, counts1, values2, counts2):
     ss2 = torch.where(mask2, (values2 - m2[:, None]) ** 2, zero).sum(dim=1)
     return torch.cat([ranks.view(f32),
                       torch.stack([m1.to(f32), ss1, m2.to(f32), ss2])])
+
+
+# ---------------------------------------------------------------------------
+# Coverage-capped repeated-subsample KS (the reference's capped_ks_d): where
+# a group's count exceeds the per-strand cap `cov`, KS is repeated on
+# `repeats` subsamples of size cov drawn with replacement, and the
+# quantile_idx-th largest numerator is kept.  The draws are jax.random's,
+# reproduced bit for bit by stats/threefry.py (plain) and csrc/threefry.cuh
+# (kernel K6, csrc/capped_ks.cu).
+# ---------------------------------------------------------------------------
+
+# the i32 bound of the exact components (battery._check_i32_bounds)
+MAX_COV = 645
+MAX_REPEATS = 8192
+
+
+def capped_draws_plain(counts, row_index, *, cov, repeats, seed, group):
+    """The subsample indices capped_ks_d draws for one group (0 or 1):
+    [P, repeats * cov] int32, row p drawn in [0, max(counts[p], 1))."""
+    k1, k2 = threefry.row_keys(seed, row_index)
+    key = k1 if group == 0 else k2
+    counters = torch.arange(repeats * cov, dtype=torch.int64,
+                            device=counts.device)
+    span = counts.to(torch.int64).clamp(min=1)[:, None]
+    idx = threefry.randint((key[0][:, None], key[1][:, None]),
+                           counters[None, :], span)
+    return idx.to(torch.int32)
+
+
+def _subsample(values, counts, row_index, *, cov, repeats, seed, group):
+    """[p, repeats, cov] values of one group per repeat: the drawn values
+    where the count exceeds cov, else the prefix values[:, :cov]."""
+    p_dim = values.shape[0]
+    prefix = values[:, :cov][:, None, :].expand(p_dim, repeats, cov)
+    capped = counts > cov
+    if not bool(capped.any()):
+        return prefix
+    idx = capped_draws_plain(counts, row_index, cov=cov, repeats=repeats,
+                             seed=seed, group=group).to(torch.int64)
+    drawn = torch.gather(values, 1, idx).view(p_dim, repeats, cov)
+    return torch.where(capped[:, None, None], drawn, prefix)
+
+
+def _check_capped_args(cov, repeats, quantile_idx):
+    if not 1 <= cov <= MAX_COV:
+        raise ValueError(f"cov must be in [1, {MAX_COV}], got {cov}")
+    if not 1 <= repeats <= MAX_REPEATS:
+        raise ValueError(f"repeats must be in [1, {MAX_REPEATS}], "
+                         f"got {repeats}")
+    if not 0 <= quantile_idx < repeats:
+        raise ValueError(f"quantile_idx must be in [0, {repeats}), "
+                         f"got {quantile_idx}")
+
+
+def capped_ks_d_plain(values1, counts1, values2, counts2, row_index=None, *,
+                      cov, repeats, quantile_idx, seed):
+    """Plain PyTorch twin of K6, a transcription of the reference's
+    capped_ks_d: [P] int32, the quantile_idx-th largest KS numerator over
+    ``repeats`` subsamples (effective sizes min(count, cov)).  Counts must
+    not exceed the pool widths.  Works in row chunks so the [p, R, cov,
+    2 cov] compare tensor stays bounded."""
+    _check_capped_args(cov, repeats, quantile_idx)
+    v1, v2 = _promote(values1, values2)
+    p_dim = v1.shape[0]
+    dev = v1.device
+    if row_index is None:
+        row_index = torch.arange(p_dim, dtype=torch.int32, device=dev)
+    # pad to >= cov columns so the prefix is shape-valid (padding is masked)
+    if v1.shape[1] < cov:
+        v1 = torch.nn.functional.pad(v1, (0, cov - v1.shape[1]))
+    if v2.shape[1] < cov:
+        v2 = torch.nn.functional.pad(v2, (0, cov - v2.shape[1]))
+    n1 = counts1.to(torch.int64)
+    n2 = counts2.to(torch.int64)
+    col = torch.arange(cov, device=dev)[None, :]
+    out = torch.empty(p_dim, dtype=torch.int32, device=dev)
+    step = max(1, _PLAIN_CHUNK_ELEMS // (repeats * cov * 2 * cov))
+    for lo in range(0, p_dim, step):
+        sl = slice(lo, min(lo + step, p_dim))
+        a, b, ri = n1[sl], n2[sl], row_index[sl]
+        kw = dict(cov=cov, repeats=repeats, seed=seed)
+        s1 = _subsample(v1[sl], a, ri, group=0, **kw)
+        s2 = _subsample(v2[sl], b, ri, group=1, **kw)
+        m1 = (a > cov)[:, None] | (col < a[:, None])
+        m2 = (b > cov)[:, None] | (col < b[:, None])
+        ne1 = a.clamp(max=cov)[:, None, None]
+        ne2 = b.clamp(max=cov)[:, None, None]
+        z = torch.cat([s1, s2], dim=2)                       # [p, R, 2 cov]
+        le_a = (m1[:, None, :, None] & (s1[..., None] <= z[:, :, None, :])
+                ).sum(dim=2)
+        le_b = (m2[:, None, :, None] & (s2[..., None] <= z[:, :, None, :])
+                ).sum(dim=2)
+        num = torch.abs(le_a * ne2 - le_b * ne1)
+        validq = torch.cat([m1, m2], dim=1)[:, None, :]
+        nums = torch.where(validq, num, 0).amax(dim=2)       # [p, R]
+        out[sl] = torch.sort(nums, dim=1, descending=True).values[
+            :, quantile_idx].to(torch.int32)
+    return out
+
+
+def capped_ks_d_cuda(values1, counts1, values2, counts2, row_index=None, *,
+                     cov, repeats, quantile_idx, seed):
+    """Launch K6 on CUDA tensors; same result as capped_ks_d_plain."""
+    _check_capped_args(cov, repeats, quantile_idx)
+    dev = values1.device
+    if dev.type != "cuda":
+        raise ValueError(f"capped_ks_d_cuda needs CUDA tensors, got {dev}")
+    p_dim = values1.shape[0]
+    if row_index is None:
+        row_index = torch.arange(p_dim, dtype=torch.int32, device=dev)
+    for t in (counts1, values2, counts2, row_index):
+        if t.device != dev:
+            raise ValueError("all inputs must be on one device")
+    v1, v2 = _promote(values1, values2)
+    if v1.dtype not in (torch.int16, torch.float32):
+        raise ValueError(f"values must be int16 or float32, got {v1.dtype}")
+    if v1.dim() != 2 or v2.dim() != 2 or v2.shape[0] != p_dim:
+        raise ValueError("values must be [P, C1] and [P, C2]")
+    if (counts1.shape != (p_dim,) or counts2.shape != (p_dim,)
+            or row_index.shape != (p_dim,)):
+        raise ValueError("counts and row_index must be [P]")
+    if row_index.dtype != torch.int32:
+        raise ValueError(f"row_index must be int32, got {row_index.dtype}")
+    if repeats * cov >= 2 ** 31:
+        raise ValueError("repeats * cov must stay below 2^31")
+    v1 = v1.contiguous()
+    v2 = v2.contiguous()
+    n1 = counts1.to(torch.int32).contiguous()
+    n2 = counts2.to(torch.int32).contiguous()
+    ri = row_index.contiguous()
+    out = torch.empty(p_dim, dtype=torch.int32, device=dev)
+    k_hi, k_lo = threefry.prng_key(seed)
+    lib = kbuild.lib()
+    rc = lib.nm_capped_ks(v1.data_ptr(), n1.data_ptr(), v1.shape[1],
+                          v2.data_ptr(), n2.data_ptr(), v2.shape[1],
+                          ri.data_ptr(), p_dim, cov, repeats, quantile_idx,
+                          k_hi, k_lo, 1 if v1.dtype == torch.int16 else 0,
+                          out.data_ptr(), kbuild.stream_ptr(dev))
+    kbuild.check(rc, "capped_ks")
+    kbuild.LAUNCHES["capped_ks"] += 1
+    return out
+
+
+def capped_draws_cuda(counts, row_index, *, cov, repeats, seed, group):
+    """K6's own draws (csrc/capped_ks.cu nm_capped_draws) on CUDA tensors:
+    what capped_draws_plain gives.  A check of the kernel's threefry, not
+    a step of the main path, so it is not counted in LAUNCHES."""
+    dev = counts.device
+    if dev.type != "cuda" or row_index.device != dev:
+        raise ValueError("capped_draws_cuda needs CUDA tensors on one device")
+    if row_index.dtype != torch.int32 or group not in (0, 1):
+        raise ValueError("row_index must be int32 and group 0 or 1")
+    p_dim = counts.shape[0]
+    n = counts.to(torch.int32).contiguous()
+    ri = row_index.contiguous()
+    out = torch.empty((p_dim, repeats * cov), dtype=torch.int32, device=dev)
+    k_hi, k_lo = threefry.prng_key(seed)
+    rc = kbuild.lib().nm_capped_draws(n.data_ptr(), ri.data_ptr(), p_dim,
+                                      repeats * cov, k_hi, k_lo, group,
+                                      out.data_ptr(), kbuild.stream_ptr(dev))
+    kbuild.check(rc, "capped_draws")
+    return out
+
+
+def capped_ks_d(values1, counts1, values2, counts2, row_index=None, *, cov,
+                repeats, quantile_idx, seed):
+    """Capped-KS numerators [P] int32 on the device of ``values1``: the
+    plain version for CPU tensors, kernel K6 for CUDA tensors (raises if it
+    cannot launch).  ``row_index`` [P] int32 keys each row's draws by its
+    absolute row in its (chrom, strand) join, so tiling does not change
+    them (default: 0..P-1)."""
+    fn = capped_ks_d_plain if values1.device.type == "cpu" else capped_ks_d_cuda
+    return fn(values1, counts1, values2, counts2, row_index, cov=cov,
+              repeats=repeats, quantile_idx=quantile_idx, seed=seed)
 
 
 def welch_finalize_exact(sum1, sumsq1, n1, sum2, sumsq2, n2):

@@ -127,10 +127,33 @@ def test_backend_selection(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["device", "host"])
 def test_capped_ks_raises(backend):
+    """A cap above K6's exact-int32 bound (645), with a row above it."""
     v1, n1, v2, n2 = _pools(7, p=16)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tbat.run_battery(v1, n1, v2, n2, cfg=StatConfig(coverages=(8, 8)),
+    v1 = np.pad(v1, ((0, 0), (0, 1000 - v1.shape[1])))
+    n1[3] = 1000
+    n2[3] = min(n2[3], 200)
+    with pytest.raises(ValueError, match="cov"):
+        tbat.run_battery(v1, n1, v2, n2, cfg=StatConfig(coverages=(646, 646)),
                          backend=backend, device="cpu")
+
+
+@pytest.mark.parametrize("quantile", [0.25, 1.0])
+@pytest.mark.parametrize("backend", ["device", "host"])
+def test_capped_ks_matches_jax(backend, quantile):
+    """run_battery with a coverage cap against the JAX package's, with a
+    row offset and tiles that cut the capped rows; a quantile of 1 takes
+    the last repeat, as the reference's index does."""
+    v1, n1, v2, n2 = _pools(8, p=300)
+    cfg = StatConfig(coverages=(12, 20), downsampling=16,
+                     downsampling_quantile=quantile)
+    for strand in ("+", "-"):
+        kw = dict(strand=strand, cfg=cfg, row_offset=40, want_mstd=True)
+        want = jbat.run_battery(v1, n1, v2, n2, backend=backend, **kw)
+        got = tbat.run_battery(v1, n1, v2, n2, backend=backend, device="cpu",
+                               tile_positions=128, **kw)
+        for key in ("stu", "pu", "stks", "pks", "mstd"):
+            np.testing.assert_array_equal(getattr(got, key),
+                                          getattr(want, key), err_msg=key)
 
 
 def test_to_device_tile_cpu_and_no_launch():

@@ -1,4 +1,5 @@
-"""Kernels K1, K2 and K3 against their plain PyTorch versions on the card.
+"""Kernels K1, K2, K3 and K6 against their plain PyTorch versions on the
+card.
 
 These tests need an NVIDIA card and nvcc; without a card they skip.  Run
 them on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -101,3 +102,56 @@ def test_run_battery_device_equals_host(dev):
     h = battery.run_battery(v1, n1, v2, n2, backend="host", want_mstd=True)
     for key in ("stu", "pu", "stt", "pt", "stks", "pks", "mstd"):
         np.testing.assert_array_equal(getattr(d, key), getattr(h, key))
+
+
+@pytest.mark.parametrize("dtype,cov,reps,q", [
+    ("i16", 16, 20, 5), ("f32", 100, 12, 0), ("mixed", 8, 10, 9),
+    ("nan", 645, 4, 3)])
+def test_k6_matches_plain(dev, dtype, cov, reps, q):
+    rng = np.random.default_rng(cov + reps)
+    p, c = 200, 1024 if cov == 645 else 128
+    v1 = (rng.integers(-20, 21, (p, c)) * 50).astype(np.int16)
+    v2 = (rng.integers(-20, 21, (p, c)) * 50).astype(np.int16)
+    n1 = rng.integers(0, c + 1, p).astype(np.int32)
+    n2 = rng.integers(0, c + 1, p).astype(np.int32)
+    n1[:4] = (1, cov, cov + 1, 0)
+    n2[:4] = (cov + 1, 1, cov, 0)
+    if dtype != "i16":
+        v2 = v2.astype(np.float32) / np.float32(1000)
+        if dtype != "mixed":
+            v1 = v1.astype(np.float32) / np.float32(1000)
+        if dtype == "nan":
+            for i in range(p):
+                v1[i, n1[i]:] = np.nan
+                v2[i, n2[i]:] = np.nan
+    rows = (np.arange(p) + (1 << 20)).astype(np.int32)
+    t = [torch.from_numpy(x).to(dev) for x in (v1, n1, v2, n2, rows)]
+    kw = dict(cov=cov, repeats=reps, quantile_idx=q, seed=7)
+    before = kbuild.launch_counts()["capped_ks"]
+    got = kernels.capped_ks_d(*t, **kw)
+    assert kbuild.launch_counts()["capped_ks"] == before + 1
+    assert torch.equal(got, kernels.capped_ks_d_plain(*t, **kw))
+    for group in (0, 1):
+        d = dict(cov=cov, repeats=reps, seed=7, group=group)
+        assert torch.equal(kernels.capped_draws_cuda(t[group * 2 + 1], t[4], **d),
+                           kernels.capped_draws_plain(t[group * 2 + 1], t[4], **d))
+
+
+def test_run_battery_capped_device_equals_host(dev):
+    from nanomod_tpu.config import StatConfig
+    rng = np.random.default_rng(10)
+    p, c = 3000, 64
+    v1 = np.round(rng.normal(0, 1, (p, c)), 3).astype(np.float32)
+    v2 = np.round(rng.normal(0.2, 1, (p, c)), 3).astype(np.float32)
+    n1 = rng.integers(1, c + 1, p).astype(np.int32)
+    n2 = rng.integers(1, c + 1, p).astype(np.int32)
+    cfg = StatConfig(coverages=(20, 20), downsampling=30)
+    d = battery.run_battery(v1, n1, v2, n2, cfg=cfg, device=dev,
+                            tile_positions=1024, row_offset=5)
+    h = battery.run_battery(v1, n1, v2, n2, cfg=cfg, backend="host",
+                            device=dev, row_offset=5)
+    c = battery.run_battery(v1, n1, v2, n2, cfg=cfg, device="cpu",
+                            tile_positions=700, row_offset=5)
+    for key in ("stks", "pks"):
+        np.testing.assert_array_equal(getattr(d, key), getattr(h, key))
+        np.testing.assert_array_equal(getattr(d, key), getattr(c, key))

@@ -69,7 +69,7 @@ def test_annotate_fast5_byte_identical(chain):
             metrics = json.load(f)
         # on the CPU the wrappers run the plain versions: no kernel launch
         assert metrics["kernel_launches"] == {"banded_sw": 0, "walk": 0,
-                                              "battery": 0}
+                                              "battery": 0, "capped_ks": 0}
         assert metrics["reads_ok"] >= 10
 
 

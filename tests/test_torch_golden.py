@@ -1,8 +1,9 @@
 """The port's detect_from_pools + save_sign_test must byte-match the
 checked-in golden sign-test files (tests/golden, made by the independent
 scipy-only oracle), on the device backend (plain K3 on the CPU) and on the
-native host backend.  The coverage-capped variant needs kernel K6, not yet
-ported, and raises."""
+native host backend.  The coverage-capped variant (K6's plain version on
+the CPU, for both backends) must byte-match the golden sign-test and
+_meanstd.cvs files, whatever the tile size."""
 
 import os
 
@@ -53,10 +54,24 @@ def test_golden_sign_test(pools, tmp_path, name, backend):
     assert got == want
 
 
-def test_golden_capped_raises(pools, tmp_path):
+# tests/test_golden.py VARIANTS["capped"]
+CAPPED = StatConfig(test_method="stouffer", coverages=(8, 8), downsampling=20,
+                    downsampling_quantile=0.25, downsampling_seed=0)
+
+
+@pytest.mark.parametrize("tile_positions", [16384, 40])
+@pytest.mark.parametrize("backend", ["device", "host"])
+@pytest.mark.parametrize("suffix", ["sign_test.txt", "meanstd.cvs"])
+def test_golden_capped(pools, tmp_path, suffix, backend, tile_positions):
     cfg = DetectConfig(out_folder=str(tmp_path), file_id="capped",
-                       stats=StatConfig(test_method="stouffer",
-                                        coverages=(8, 8), downsampling=20),
-                       mstd=True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        detect_from_pools(pools[0], pools[1], cfg, device="cpu")
+                       stats=CAPPED, mstd=True,
+                       tile_positions=tile_positions)
+    table, order = detect_from_pools(pools[0], pools[1], cfg, device="cpu",
+                                     backend=backend)
+    save_sign_test(table, cfg)
+    with open(os.path.join(str(tmp_path), f"capped_{suffix}"), "rb") as f:
+        got = f.read()
+    with open(os.path.join(GOLDEN, f"golden_capped_{suffix}"), "rb") as f:
+        want = f.read()
+    assert len(want) > 10_000
+    assert got == want

@@ -36,7 +36,8 @@ def test_no_port_module_imports_jax():
                 "resquiggle.banded", "resquiggle.banded_kernel",
                 "resquiggle.pipeline", "resquiggle.seed",
                 "resquiggle.annotate", "stats.kernels", "stats.battery",
-                "stats.special", "stats.combine", "rank.ranking"):
+                "stats.special", "stats.combine", "stats.threefry",
+                "rank.ranking", "native", "harness.simulate"):
         assert f"nanomod_tpu_torch.{mod}" in names, mod
     assert out[1] == "False False True", out[1]
 
