@@ -6,12 +6,18 @@
 Phase 0  prints the card (nvidia-smi name and power limit), the PyTorch and
          CUDA versions; builds the CUDA kernels (nvcc, sm_90a) and the
          native host libraries from the sources in the checkout.
-Phase 1  K1 (banded DP) and K2 (traceback walk) against their plain PyTorch
-         versions on the card: B = 256 synthetic reads (genome windows with
-         ~5 % substitutions and indels, some reads shorter than their
-         bucket, some N codes), W = 128, M = 1024 (the bucket of the main
-         path's reads), 2048, 4096, 8192.  tb, best, best_i, best_k and the
-         packed walk codes must be array-equal.
+Phase 1  K1 (banded DP) and K2 (the traceback walk, codes packed four a
+         byte) against their plain PyTorch versions on the card: B = 256
+         synthetic reads (genome windows with ~5 % substitutions and
+         indels, some reads shorter than their bucket, some N codes),
+         W = 128, M = 1024 (the bucket of the main path's reads), 2048,
+         4096, 8192; then a batch rich in ties (tandem repeats whose best
+         score is reached at several cells), an all-mismatch batch (best 0
+         at (0, 0)), a ragged B = 37, and W = 32 and W = 1024 at M = 256.
+         tb, best, best_i, best_k and the packed walk codes must be
+         array-equal.  Each kernel's time is printed beside its bound and
+         the range of single launches recorded for the first kernels
+         (PERF.md).
 Phase 2  K3 (battery components) at detect scale: P = 1,048,576 positions
          in tiles of 16,384, counts 30..100 per group (capacity 128), int16
          milli values with heavy ties, rows with count 0 and 1, plus a tile
@@ -33,8 +39,10 @@ Phase 4  K6 (coverage-capped KS) against its plain version on the card: one
          R = 100, quantile 0.25, seed 0, row index from 2^20 (the plain
          version on the first 2,048 rows); a tile of capped and uncapped
          rows (counts 0, 1, cov, cov + 1), an f32 tile and an f32 tile with
-         NaN padding, whole.  Outputs must be array-equal, and K6's own
-         threefry draws equal to the plain replica's.
+         NaN padding, whole, and a tile at cov = 700 (one group of 650-1,000
+         observations, the other at most 290), whole.  Outputs must be
+         array-equal, and K6's own threefry draws equal to the plain
+         replica's.
 Phase 5  the new entry points on phase 3's corrected groups: ``cli detect
          --coverages 200-200 --downsampling 100 --mstd 1`` (planted site
          first, K6 launched; sign-test and meanstd files byte-equal to the
@@ -52,10 +60,21 @@ Phase 6  K6 at the main path's own shapes: the capped detect again, in
          whole, both timed.  The kernels line gives K6's times at that
          input.
 
-Kernel times are medians of 3 runs after one warm-up, taken with CUDA
-events; a plain version's time is one run after its comparison run.  Any
-failure raises (non-zero exit).  The last line is
-``{"ok": true, "device": {...}}``; the line before it lists each kernel.
+Kernel times are medians of 3 samples after one warm-up, each sample 10
+back-to-back calls between two CUDA events, divided by 10 (the ``ms`` of
+the kernels line); each kernel is also timed as single launches, one call
+between two events (``*_single_ms``, the yardstick of the times recorded
+for the first kernels, which includes the host's launch overhead); a plain
+version's time
+is one run after its comparison run.  Each kernel's bound is the larger of
+the bytes it must move (inputs read once, outputs written once; for the
+walk, the cells this run's walks visit) over 3.35 TB/s and its operations
+over their type's peak (f32 67 TFLOP/s, INT32 16.7 TOP/s; an H100 SXM at
+700 W); the battery kernels count the operations of a sort-and-merge
+evaluation, not their own pairwise compares.  Any failure raises (non-zero
+exit), and so does a module of the JAX package found loaded at the end.
+The last line is ``{"ok": true, "device": {...}}``; the line before it
+lists each kernel.
 """
 
 import json
@@ -97,9 +116,46 @@ CAPPED_RANK1 = ["spel", "-", str(SMOKE_MOD_POS + 1)]
 PHASE3_KERNELS = ("banded_sw", "walk", "battery")
 # a plain version is timed once, warmed by the comparison run just before
 # (seconds a call at these shapes; the kernels take the median of 3)
-PLAIN_TIMING = dict(reps=1, warm=True)
+PLAIN_TIMING = dict(reps=1, warm=True, n=1)
 NATIVE_LIBS = ("fast5_ingest", "fast5_write", "sort_core", "traceback",
                "annotate_core", "format_core", "seed_core")
+# phase 1's extra batches: M of the W = 32 / 1024 and ragged batches
+DP_SMALL_M = 256
+DP_RAGGED_B = 37
+# phase 4's tile above the old cap of 645: widths, rows, cov
+DEEP_CAPS = (1000, 290)
+DEEP_P = 256
+DEEP_COV = 700
+# the first K1 and K2 (one block of W threads a read; one thread a walk) at
+# the main path's shape on one H100 (PERF.md), ms, single launches (the
+# yardstick of time_ms(..., n=1))
+RECORDED_MS = {"banded_sw": (0.656, 0.677), "walk": (0.592, 0.611)}
+# an H100 SXM's published peaks at 700 W: HBM3 rate, dense f32 outside the
+# tensor cores; INT32 is not in the data sheet: 64 INT32 lanes an SM
+# (Hopper's SM, half its 128 f32 lanes) x 132 SMs x 1.98 GHz, the clock at
+# which 128 f32 lanes give 67 TFLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# K1's f32 operations a DP cell: F (2 adds, 1 max), diagonal (1 add), Hnoe
+# (2 max), Hnoe - ge*k (1 sub), running max (1), E (1 add), H (1 max), the
+# extend tests (4 adds, 2 compares), the source (3 compares), the best (1)
+K1_OPS_PER_CELL = 20
+# K2's integer operations a walk step (decode, automaton, pack)
+K2_OPS_PER_STEP = 12
+# The battery's least work is a sort-and-merge evaluation, as the native
+# host battery does it (sort_core.cpp): n log2 n compares to sort each
+# group, then one merge walk over the n1 + n2 pooled values.  Operations a
+# pooled value in the walk: for the KS numerator a compare, two multiplies,
+# a subtract, an abs and a max; for the rank and tie sums two adds and a
+# multiply.  The milli moments (rows 3-8): an add, a multiply, a shift and
+# a mask a value.
+WALK_KS_OPS = 6
+WALK_RANK_OPS = 3
+MILLI_MOMENT_OPS = 4
+# integer operations a threefry2x32 block (20 rounds of add, rotate, xor
+# and the key injections), two blocks a drawn index
+THREEFRY_OPS = 100
 
 
 def log(*a):
@@ -114,9 +170,12 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps=3, warm=False) -> float:
-    """Median wall time of fn() on the card, CUDA events, after a warm-up
-    (none when ``warm``: fn has just run, for the comparison)."""
+def time_ms(torch, fn, reps=3, warm=False, n=10) -> float:
+    """Time of one fn() on the card: the median over ``reps`` samples of
+    n back-to-back calls between two CUDA events, divided by n, after a
+    warm-up (none when ``warm``: fn has just run, for the comparison).
+    Back to back, a short kernel's launch overhead on the host hides
+    behind the queue, as it does on the main path."""
     if not warm:
         fn()
     torch.cuda.synchronize()
@@ -125,10 +184,11 @@ def time_ms(torch, fn, reps=3, warm=False) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         b.synchronize()
-        ts.append(a.elapsed_time(b))
+        ts.append(a.elapsed_time(b) / n)
     return float(np.median(ts))
 
 
@@ -154,46 +214,178 @@ def synth_reads(rng, bsz, m, w):
     return read, ref, lens
 
 
+def tie_reads(rng, bsz, m, w):
+    """Tandem-repeat reads on tandem-repeat windows, one break each: the
+    best score is reached at several cells, across rows and within a
+    row."""
+    unit = np.array([0, 1, 0, 1, 2], np.uint8)
+    ref = np.resize(unit, (bsz, m + w)).copy()
+    read = np.resize(unit, (bsz, m)).copy()
+    for b in range(bsz):
+        read[b] = np.roll(read[b], b)
+        cut = int(rng.integers(m // 4, m))
+        read[b, cut:cut + 3] = 3
+    return read, ref, np.full(bsz, m, np.int32)
+
+
+def mismatch_reads(rng, bsz, m, w):
+    """Every code mismatches (reads A, windows C): best 0 at (0, 0)."""
+    return (np.zeros((bsz, m), np.uint8), np.ones((bsz, m + w), np.uint8),
+            rng.integers(1, m + 1, bsz).astype(np.int32))
+
+
 def max_abs_err(torch, pairs) -> float:
     return max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
                for a, b in pairs)
+
+
+def bound(bytes_moved, f32_ops=0, int_ops=0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their type's peak (f32 and INT32
+    run on separate lanes, so the larger of the two)."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = max(f32_ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
+def k1_work(read, ref, tb):
+    """K1's bytes (codes and lengths read, tb and the three [B] outputs
+    written) and f32 operations."""
+    bsz = read.shape[0]
+    return dict(bytes_moved=read.numel() + ref.numel() + 4 * bsz
+                + tb.numel() + 12 * bsz,
+                f32_ops=K1_OPS_PER_CELL * tb.numel())
+
+
+def k2_work(torch, packed):
+    """K2's bytes for this run's walks (a tb byte a step taken, best_i and
+    best_k, the packed codes written) and integer operations.  The steps
+    are the non-zero codes plus at most one stop step a read."""
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
+                          device=packed.device)
+    steps = int(((packed[..., None] >> shifts) & 3).ne(0).sum()) \
+        + packed.shape[0]
+    return dict(bytes_moved=steps + 8 * packed.shape[0] + packed.numel(),
+                int_ops=K2_OPS_PER_STEP * steps)
+
+
+def sort_compares(torch, n):
+    """n log2 n a group of n values (0 for n <= 1), as int64 per row."""
+    n = n.to(torch.float64)
+    return (n * torch.log2(n.clamp(min=1))).to(torch.int64)
+
+
+def ops_of(values, n):
+    """{"f32_ops" or "int_ops": n}: compares of f32 values count at the f32
+    peak, of int16 values at the INT32 peak."""
+    return {"f32_ops" if values.is_floating_point() else "int_ops": n}
+
+
+def k3_work(torch, v1, n1, v2, n2):
+    """K3's bytes (values and counts read, 9 [P] int32 rows written) and
+    the operations of a sort-and-merge evaluation of every row."""
+    c1 = n1.to(torch.int64).clamp(0, v1.shape[1])
+    c2 = n2.to(torch.int64).clamp(0, v2.shape[1])
+    ops = int((sort_compares(torch, c1) + sort_compares(torch, c2)
+               + (WALK_KS_OPS + WALK_RANK_OPS + MILLI_MOMENT_OPS)
+               * (c1 + c2)).sum())
+    return dict(bytes_moved=v1.nbytes + v2.nbytes + n1.nbytes + n2.nbytes
+                + 36 * n1.shape[0], **ops_of(v1, ops))
+
+
+def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
+    """K1 and K2 against their plain versions on one batch (array-equal);
+    returns K1's outputs, K2's packed codes and the two max abs errors."""
+    k_out = banded_sw_cuda(read, ref, lens)
+    p_out = banded.banded_sw_plain(read, ref, lens)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("tb", "best", "best_i", "best_k"), k_out, p_out):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K1 {name} differs from plain: {what}")
+    tb, _, bi, bk = k_out
+    ck = banded.walk_packed_cuda(tb, bi, bk)
+    cp = banded.walk_packed_plain(tb, bi, bk)
+    if not torch.equal(ck, cp):
+        raise AssertionError(f"K2 packed codes differ from plain: {what}")
+    return (k_out, ck, max_abs_err(torch, zip(k_out, p_out)),
+            max_abs_err(torch, [(ck, cp)]))
 
 
 def phase1(torch, dev):
     from nanomod_tpu_torch.resquiggle import banded
     from nanomod_tpu_torch.resquiggle.banded_kernel import banded_sw_cuda
     rng = np.random.default_rng(0)
+
+    def on_card(arrays):
+        return [torch.from_numpy(x).to(dev) for x in arrays]
+
     out = {}
     for m in DP_BUCKETS:
-        read, ref, lens = (torch.from_numpy(x).to(dev)
-                           for x in synth_reads(rng, DP_BATCH, m, W))
-        k_out = banded_sw_cuda(read, ref, lens)
-        p_out = banded.banded_sw_plain(read, ref, lens)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("tb", "best", "best_i", "best_k"), k_out, p_out):
-            if not torch.equal(a, b):
-                raise AssertionError(f"K1 {name} differs from plain at M={m}")
+        read, ref, lens = on_card(synth_reads(rng, DP_BATCH, m, W))
+        k_out, ck, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read,
+                                     ref, lens, f"M={m}")
         tb, _, bi, bk = k_out
-        ck = banded.pack_codes2(banded.walk_cuda(tb, bi, bk))
-        cp = banded.pack_codes2(banded.walk_device_plain(tb, bi, bk))
-        if not torch.equal(ck, cp):
-            raise AssertionError(f"K2 packed codes differ from plain at M={m}")
+        k1 = lambda: banded_sw_cuda(read, ref, lens)  # noqa: E731
+        k2 = lambda: banded.walk_packed_cuda(tb, bi, bk)  # noqa: E731
         res = {
             "M": m, "B": DP_BATCH, "W": W,
-            "k1_max_abs_err": max_abs_err(torch, zip(k_out, p_out)),
-            "k2_max_abs_err": max_abs_err(torch, [(ck, cp)]),
-            "k1_ms": time_ms(torch, lambda: banded_sw_cuda(read, ref, lens)),
+            "k1_max_abs_err": e1, "k2_max_abs_err": e2,
+            "k1_ms": time_ms(torch, k1),
+            "k1_single_ms": time_ms(torch, k1, n=1),
             "k1_plain_ms": time_ms(
                 torch, lambda: banded.banded_sw_plain(read, ref, lens),
                 **PLAIN_TIMING),
-            "k2_ms": time_ms(torch, lambda: banded.walk_cuda(tb, bi, bk)),
+            "k2_ms": time_ms(torch, k2),
+            "k2_single_ms": time_ms(torch, k2, n=1),
             "k2_plain_ms": time_ms(
-                torch, lambda: banded.walk_device_plain(tb, bi, bk),
+                torch, lambda: banded.walk_packed_plain(tb, bi, bk),
                 **PLAIN_TIMING),
             "mean_best": float(k_out[1].mean()),
         }
+        res["k1_bound_ms"], res["k1_bound_by"] = bound(**k1_work(read, ref,
+                                                                 tb))
+        res["k2_bound_ms"], res["k2_bound_by"] = bound(**k2_work(torch, ck))
         log("phase1", json.dumps(res))
+        if m == MAIN_PATH_BUCKET:
+            for name, key in (("banded_sw", "k1"), ("walk", "k2")):
+                lo, hi = RECORDED_MS[name]
+                log(f"phase1 {name} at B {DP_BATCH}, M {m}, W {W}: single "
+                    f"launch {res[key + '_single_ms']:.4f} ms (first "
+                    f"kernel, single launches: {lo}-{hi} ms), 10-launch mean "
+                    f"{res[key + '_ms']:.4f} ms, bound "
+                    f"{res[key + '_bound_ms']:.6f} ms "
+                    f"({res[key + '_bound_by']})")
         out[m] = res
+
+    extra = {
+        "ties": (tie_reads(rng, DP_BATCH, MAIN_PATH_BUCKET, W), W),
+        "all_mismatch": (mismatch_reads(rng, DP_BATCH, MAIN_PATH_BUCKET, W),
+                         W),
+        f"ragged_B{DP_RAGGED_B}": (synth_reads(rng, DP_RAGGED_B, DP_SMALL_M,
+                                              W), W),
+        "W32": (synth_reads(rng, DP_BATCH, DP_SMALL_M, 32), 32),
+        "W1024": (synth_reads(rng, DP_BATCH, DP_SMALL_M, 1024), 1024),
+    }
+    errs = {}
+    for what, (arrays, w) in extra.items():
+        read, ref, lens = on_card(arrays)
+        k_out, _, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
+                                    lens, what)
+        best, bi, bk = (x.cpu().numpy() for x in k_out[1:])
+        if what == "all_mismatch" and (best.any() or bi.any() or bk.any()):
+            raise AssertionError("all-mismatch batch: best must be 0 at (0, 0)")
+        tb = k_out[0]
+        errs[what] = {"k1_max_abs_err": e1, "k2_max_abs_err": e2,
+                      "W": w, "B": len(best), "M": read.shape[1],
+                      "max_best": float(best.max()),
+                      "k1_ms": time_ms(torch, lambda: banded_sw_cuda(
+                          read, ref, lens)),
+                      "k2_ms": time_ms(torch, lambda: banded.walk_packed_cuda(
+                          tb, k_out[2], k_out[3]))}
+    log("phase1 extra", json.dumps(errs))
+    out["extra"] = errs
     return out
 
 
@@ -259,12 +451,13 @@ def phase2(torch, dev):
     k_ms = time_ms(torch, lambda: run(kernels.battery_rows_cuda))
     p_ms = time_ms(torch, lambda: run(kernels.battery_rows_plain),
                    **PLAIN_TIMING)
-    tile_ms = time_ms(torch, lambda: kernels.battery_rows_cuda(
-        dv1[tiles[1]], dn1[tiles[1]], dv2[tiles[1]], dn2[tiles[1]],
-        milli=True))
-    tile_plain_ms = time_ms(torch, lambda: kernels.battery_rows_plain(
-        dv1[tiles[1]], dn1[tiles[1]], dv2[tiles[1]], dn2[tiles[1]],
-        milli=True))
+    tile = [x[tiles[1]] for x in (dv1, dn1, dv2, dn2)]
+    k3 = lambda: kernels.battery_rows_cuda(*tile, milli=True)  # noqa: E731
+    tile_ms = time_ms(torch, k3)
+    tile_single_ms = time_ms(torch, k3, n=1)
+    tile_plain_ms = time_ms(
+        torch, lambda: kernels.battery_rows_plain(*tile, milli=True))
+    tile_bound = bound(**k3_work(torch, *tile))
 
     # the whole battery (encode, H2D, K3, D2H, float64 finalize) against
     # the host backend, on pools of at least one observation per group
@@ -287,7 +480,9 @@ def phase2(torch, dev):
         "P": p, "tile": BATTERY_TILE, "cap": c,
         "k3_max_abs_err": max_abs_err(torch, [(rows_k, rows_p)]),
         "k3_ms": k_ms, "k3_plain_ms": p_ms, "host_components_ms": host_s * 1e3,
-        "k3_tile_ms": tile_ms, "k3_tile_plain_ms": tile_plain_ms,
+        "k3_tile_ms": tile_ms, "k3_tile_single_ms": tile_single_ms,
+        "k3_tile_plain_ms": tile_plain_ms,
+        "k3_tile_bound_ms": tile_bound[0], "k3_tile_bound_by": tile_bound[1],
         "k3_sites_per_s": p / (k_ms / 1e3),
         "plain_sites_per_s": p / (p_ms / 1e3),
         "host_sites_per_s": p / host_s,
@@ -339,7 +534,7 @@ def _env():
 
 
 def phase3(torch, dev, tmp):
-    from nanomod_tpu.config import DetectConfig, RankConfig
+    from nanomod_tpu_torch.config import DetectConfig, RankConfig
     from nanomod_tpu_torch.detect import run_detect
     data = os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data")
     env = _env()
@@ -451,6 +646,43 @@ def _capped_tile(rng, p, cap, lo, hi, cov, kind):
     return vals[0], counts[0], vals[1], counts[1]
 
 
+def k6_work(torch, args, kw):
+    """K6's bytes (pools, counts and rows read, [P] written) and
+    operations for one call, each evaluation sort-and-merge: a capped
+    group draws R subsamples of cov (R cov indices of two threefry blocks
+    each) and sorts each; a group at most cov is sorted once; a capped row
+    merge-walks R pairs for the KS numerator and picks the quantile of the
+    R numerators (R operations), an uncapped row one pair."""
+    v1, n1, v2, n2, rows = args
+    cov, reps = kw["cov"], kw["repeats"]
+    c1 = n1.to(torch.int64).clamp(0, v1.shape[1])
+    c2 = n2.to(torch.int64).clamp(0, v2.shape[1])
+    capped = (c1 > cov) | (c2 > cov)
+    evals = torch.where(capped, reps, 1)
+    sorts = sum(sort_compares(torch, c.clamp(max=cov))
+                * torch.where(c > cov, reps, 1) for c in (c1, c2))
+    walk = WALK_KS_OPS * (c1.clamp(max=cov) + c2.clamp(max=cov)) * evals
+    values_ops = int((sorts + walk).sum() + capped.sum() * reps)
+    draws = int(((c1 > cov).sum() + (c2 > cov).sum()) * reps * cov)
+    bytes_moved = (v1.nbytes + v2.nbytes + n1.nbytes + n2.nbytes
+                   + rows.nbytes + 4 * n1.shape[0])
+    ops = ops_of(v1, values_ops)
+    ops["int_ops"] = ops.get("int_ops", 0) + 2 * THREEFRY_OPS * draws
+    return dict(bytes_moved=bytes_moved, **ops)
+
+
+def deep_tile(rng):
+    """int16 pools above the old cap: group 1 holds 650-1,000 values, group
+    2 at most 290 (the battery's pooled-width bound, 1,290)."""
+    c1, c2 = DEEP_CAPS
+    v1 = (rng.integers(-40, 41, (DEEP_P, c1)) * 25).astype(np.int16)
+    v2 = (rng.integers(-35, 46, (DEEP_P, c2)) * 25).astype(np.int16)
+    n1 = rng.integers(650, c1 + 1, DEEP_P).astype(np.int32)
+    n2 = rng.integers(0, c2 + 1, DEEP_P).astype(np.int32)
+    n1[:3] = (650, DEEP_COV, c1)
+    return v1, n1, v2, n2
+
+
 def phase4(torch, dev):
     from nanomod_tpu_torch.stats import kernels
     rng = np.random.default_rng(4)
@@ -487,6 +719,14 @@ def phase4(torch, dev):
             raise AssertionError(f"K6 differs from plain on the {kind} tile")
         errs.append((a, b))
         extra[kind] = int((x[1] > CAPPED_COV).sum() + (x[3] > CAPPED_COV).sum())
+    x = on_card(*deep_tile(rng), np.arange(DEEP_P, dtype=np.int32) + 3)
+    deep_kw = dict(kw, cov=DEEP_COV)
+    a = kernels.capped_ks_d_cuda(*x, **deep_kw)
+    b = kernels.capped_ks_d_plain(*x, **deep_kw)
+    if not torch.equal(a, b):
+        raise AssertionError(f"K6 differs from plain at cov = {DEEP_COV}")
+    errs.append((a, b))
+    extra[f"i16_cov{DEEP_COV}"] = int((x[1] > DEEP_COV).sum())
     res = {
         "P": CAPPED_P, "cap": CAPPED_CAP, "cov": CAPPED_COV,
         "repeats": CAPPED_R, "quantile_idx": CAPPED_Q,
@@ -494,6 +734,8 @@ def phase4(torch, dev):
         "capped_groups_in_extra_tiles": extra,
         "k6_max_abs_err": max_abs_err(torch, errs),
         "k6_tile_ms": time_ms(torch, lambda: kernels.capped_ks_d_cuda(*t, **kw)),
+        "k6_tile_single_ms": time_ms(
+            torch, lambda: kernels.capped_ks_d_cuda(*t, **kw), n=1),
         "k6_ms": time_ms(torch, lambda: kernels.capped_ks_d_cuda(*sub, **kw)),
         "k6_plain_ms": time_ms(
             torch, lambda: kernels.capped_ks_d_plain(*sub, **kw),
@@ -510,7 +752,7 @@ def _read_bytes(path):
 
 
 def phase5(torch, dev, tmp, groups):
-    from nanomod_tpu.config import RankConfig, SimulateConfig
+    from nanomod_tpu_torch.config import RankConfig, SimulateConfig
     from nanomod_tpu_torch.harness.simulate import run_simulate
     from nanomod_tpu_torch.kernels import build as kbuild
     env = _env()
@@ -616,7 +858,7 @@ def phase6(torch, dev, tmp, groups):
     in this process, with K6's wrapper recording each call's tensors and
     its time on the card (CUDA events around the launch); then K6 against
     its plain version on exactly those tensors, whole, and both timed."""
-    from nanomod_tpu.config import DetectConfig, RankConfig, StatConfig
+    from nanomod_tpu_torch.config import DetectConfig, RankConfig, StatConfig
     from nanomod_tpu_torch.detect import run_detect
     from nanomod_tpu_torch.stats import kernels
     launch = kernels.capped_ks_d_cuda
@@ -677,10 +919,13 @@ def phase6(torch, dev, tmp, groups):
         "k6_share_of_test_battery": sum(in_run_ms) / 1e3 / battery_s,
         "detect_s": metrics["seconds"],
         "k6_ms": time_ms(torch, lambda: launch(*args, **kw)),
+        "k6_single_ms": time_ms(torch, lambda: launch(*args, **kw), n=1),
         "k6_plain_ms": time_ms(
             torch, lambda: kernels.capped_ks_d_plain(*args, **kw),
             **PLAIN_TIMING),
     }
+    res["k6_bound_ms"], res["k6_bound_by"] = bound(**k6_work(torch, args,
+                                                             kw))
     log("phase6", json.dumps(res))
     return res
 
@@ -726,33 +971,48 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    jax_package = sorted(m for m in sys.modules
+                         if m == "nanomod_tpu" or m.startswith("nanomod_tpu."))
+    if jax_package:
+        raise AssertionError(f"JAX-package modules were loaded: {jax_package}")
 
     main_dp = p1[MAIN_PATH_BUCKET]
+    dp_runs = [r for m, r in p1.items() if m != "extra"] \
+        + list(p1["extra"].values())
+    # no single PyTorch call computes any of these functions
     kernels = [
         {"name": "banded_sw", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/banded_sw.cu",
          "replaces": "nanomod_tpu/resquiggle/banded_pallas.py:133",
          "launches": p3["launches"]["banded_sw"],
-         "max_abs_err": max(r["k1_max_abs_err"] for r in p1.values()),
-         "ms": main_dp["k1_ms"], "plain_ms": main_dp["k1_plain_ms"]},
+         "max_abs_err": max(r["k1_max_abs_err"] for r in dp_runs),
+         "ms": main_dp["k1_ms"], "plain_ms": main_dp["k1_plain_ms"],
+         "bound_ms": main_dp["k1_bound_ms"],
+         "bound_by": main_dp["k1_bound_by"], "library_ms": None},
         {"name": "walk", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/walk.cu",
          "replaces": "nanomod_tpu/resquiggle/banded.py:189",
          "launches": p3["launches"]["walk"],
-         "max_abs_err": max(r["k2_max_abs_err"] for r in p1.values()),
-         "ms": main_dp["k2_ms"], "plain_ms": main_dp["k2_plain_ms"]},
+         "max_abs_err": max(r["k2_max_abs_err"] for r in dp_runs),
+         "ms": main_dp["k2_ms"], "plain_ms": main_dp["k2_plain_ms"],
+         "bound_ms": main_dp["k2_bound_ms"],
+         "bound_by": main_dp["k2_bound_by"], "library_ms": None},
         {"name": "battery", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/battery.cu",
          "replaces": "nanomod_tpu/stats/kernels.py:186",
          "launches": p3["launches"]["battery"],
          "max_abs_err": p2["k3_max_abs_err"],
-         "ms": p2["k3_tile_ms"], "plain_ms": p2["k3_tile_plain_ms"]},
+         "ms": p2["k3_tile_ms"], "plain_ms": p2["k3_tile_plain_ms"],
+         "bound_ms": p2["k3_tile_bound_ms"],
+         "bound_by": p2["k3_tile_bound_by"], "library_ms": None},
         {"name": "capped_ks", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/capped_ks.cu",
          "replaces": "nanomod_tpu/stats/kernels.py:279",
          "launches": p5["capped_launches"]["capped_ks"],
          "max_abs_err": max(p4["k6_max_abs_err"], p6["k6_max_abs_err"]),
-         "ms": p6["k6_ms"], "plain_ms": p6["k6_plain_ms"]},
+         "ms": p6["k6_ms"], "plain_ms": p6["k6_plain_ms"],
+         "bound_ms": p6["k6_bound_ms"], "bound_by": p6["k6_bound_by"],
+         "library_ms": None},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

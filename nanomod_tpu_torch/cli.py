@@ -20,10 +20,10 @@ import argparse
 import glob
 import os
 
-from nanomod_tpu.config import (OUTPUT_DEBUG, OUTPUT_ERROR, OUTPUT_INFO,
-                                OUTPUT_WARNING, AnnotateConfig, DetectConfig,
-                                RankConfig, SimulateConfig, StatConfig,
-                                replace)
+from nanomod_tpu_torch.config import (OUTPUT_DEBUG, OUTPUT_ERROR, OUTPUT_INFO,
+                                      OUTPUT_WARNING, AnnotateConfig, DetectConfig,
+                                      RankConfig, SimulateConfig, StatConfig,
+                                      replace)
 
 
 def _common(parser):

@@ -15,8 +15,7 @@
 // compare tensor per repeat.  Here the draws are recomputed in registers
 // and never stored: one block takes one row, each thread draws its
 // columns' indices (counter r * cov + j, as the partitionable iota gives
-// it) and gathers the values into shared memory (at most 2 x 645 floats),
-// then counts a strided share of the pooled queries against both groups
+// it) and gathers the values into shared memory, then counts a strided share of the pooled queries against both groups
 // and the block max-reduces the numerator.  The R numerators stay in shared
 // memory; the quantile is selected by counting (ties need no order, only
 // the value is returned).  A row with both groups within the cap has the
@@ -27,6 +26,12 @@
 // 4 R cov threefry blocks (two draws of two hashes per group) and
 // R (ne1 + ne2)^2 compares from shared memory.  int16 milli values are
 // held as f32 in shared memory: exact and order preserving.
+//
+// Shared memory: min(cov, cap1) + min(cov, cap2) floats for the two
+// subsamples (a group's effective width never exceeds its pool's: a count
+// above cov needs a pool wider than cov) and R ints for the numerators.
+// Above the default 48 KB the launch raises the kernel's dynamic limit;
+// above the card's 227 KB the wrapper refuses the call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,13 +77,18 @@ __global__ void __launch_bounds__(THREADS)
                      int repeats, int q_idx, Key base,
                      int32_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s = reinterpret_cast<float*>(smem_raw);  // [2 cov]: ne1, then ne2
-  int* nums = reinterpret_cast<int*>(s + 2 * cov);  // [repeats]
+  // [width]: ne1 values, then ne2 (width = min(cov, cap1) + min(cov, cap2))
+  float* s = reinterpret_cast<float*>(smem_raw);
+  int* nums = reinterpret_cast<int*>(s + min(cov, cap1) + min(cov, cap2));
 
   const int p = blockIdx.x;
   const int tid = threadIdx.x;
-  const int n1 = max(c1[p], 0);
-  const int n2 = max(c2[p], 0);
+  // counts never exceed the pool widths; clamping them to a width below
+  // cov keeps a bad count inside the shared buffer
+  int n1 = max(c1[p], 0);
+  int n2 = max(c2[p], 0);
+  if (cap1 < cov) n1 = min(n1, cap1);
+  if (cap2 < cov) n2 = min(n2, cap2);
   const bool capped1 = n1 > cov;
   const bool capped2 = n2 > cov;
   const int ne1 = min(n1, cov);
@@ -158,8 +168,15 @@ int launch(const void* v1, const void* c1, int cap1, const void* v2,
            const void* c2, int cap2, const void* row_index, int p_total,
            int cov, int repeats, int q_idx, Key base, void* out,
            cudaStream_t stream) {
-  const size_t smem = (size_t)2 * cov * sizeof(float)
-                      + (size_t)repeats * sizeof(int);
+  const int width = (cov < cap1 ? cov : cap1) + (cov < cap2 ? cov : cap2);
+  const size_t smem =
+      (size_t)width * sizeof(float) + (size_t)repeats * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        capped_ks_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   capped_ks_kernel<T><<<p_total, THREADS, smem, stream>>>(
       (const T*)v1, (const int32_t*)c1, cap1, (const T*)v2,
       (const int32_t*)c2, cap2, (const int32_t*)row_index, cov, repeats,

@@ -17,10 +17,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from nanomod_tpu.accum.pools import PoolBuilder, PositionPools, join_pools
-from nanomod_tpu.config import DetectConfig, OUTPUT_INFO
-from nanomod_tpu.io.fast5 import iter_fast5_files
-from nanomod_tpu.utils.observe import observer, report, stage
+from nanomod_tpu_torch.accum.pools import PoolBuilder, PositionPools, join_pools
+from nanomod_tpu_torch.config import DetectConfig, OUTPUT_INFO
+from nanomod_tpu_torch.io.fast5 import iter_fast5_files
+from nanomod_tpu_torch.utils.observe import observer, report, stage
 from nanomod_tpu_torch.device import resolve_device
 from nanomod_tpu_torch.rank.ranking import (SignTable, region_rank,
                                             sort_sites, top_sites)
@@ -61,7 +61,7 @@ def ingest_group(folder: str, cfg: DetectConfig,
                  files=None) -> Dict[Tuple[str, str], PositionPools]:
     """Walk a group folder, read corrected events with the native reader
     (fast5_ingest.cpp), build position pools."""
-    from nanomod_tpu.native.fast5_bind import read_corrected_batch
+    from nanomod_tpu_torch.native.fast5_bind import read_corrected_batch
     from nanomod_tpu_torch.native import require
 
     if not cfg.native_ingest:
@@ -206,7 +206,7 @@ def save_sign_test(table: SignTable, cfg: DetectConfig) -> str:
 
     native_ok = False
     if cfg.native_ingest:
-        from nanomod_tpu.native.format_bind import write_sign_test_native
+        from nanomod_tpu_torch.native.format_bind import write_sign_test_native
         from nanomod_tpu_torch.native import require
         require("format_core")
         native_ok = write_sign_test_native(table, path, has_comb,
@@ -228,7 +228,7 @@ def save_sign_test(table: SignTable, cfg: DetectConfig) -> str:
         mpath = os.path.join(cfg.out_folder, f"{cfg.file_id}_meanstd.cvs")
         m_ok = False
         if cfg.native_ingest:
-            from nanomod_tpu.native.format_bind import write_meanstd_native
+            from nanomod_tpu_torch.native.format_bind import write_meanstd_native
             m_ok = write_meanstd_native(table, mpath,
                                         nthreads=cfg.num_workers)
         if not m_ok:
@@ -250,7 +250,7 @@ def run_detect(cfg: DetectConfig, device="cuda",
     counts.  Returns (table, order, sites)."""
     import time
 
-    import nanomod_tpu
+    import nanomod_tpu_torch
 
     from nanomod_tpu_torch.metrics import write_metrics
 
@@ -268,7 +268,7 @@ def run_detect(cfg: DetectConfig, device="cuda",
     if cfg.make_plots:
         raise NotImplementedError("plots are not ported (make_plots=False)")
     device = resolve_device(device)
-    nanomod_tpu.tune_malloc()
+    nanomod_tpu_torch.tune_malloc()
     observer().reset()
     start = time.time()
     pools1 = ingest_group(cfg.wrk_base1, cfg)

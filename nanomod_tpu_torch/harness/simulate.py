@@ -29,12 +29,12 @@ import numpy as np
 
 from collections import defaultdict
 
-from nanomod_tpu.accum.pools import (PoolBuilder, build_canonical_keys,
-                                     decode_canonical_keys,
-                                     pack_observations, pack_sorted_keys,
-                                     read_observations)
-from nanomod_tpu.config import DetectConfig, SimulateConfig, replace
-from nanomod_tpu.io.fast5 import iter_fast5_files
+from nanomod_tpu_torch.accum.pools import (PoolBuilder, build_canonical_keys,
+                                           decode_canonical_keys,
+                                           pack_observations, pack_sorted_keys,
+                                           read_observations)
+from nanomod_tpu_torch.config import DetectConfig, SimulateConfig, replace
+from nanomod_tpu_torch.io.fast5 import iter_fast5_files
 from nanomod_tpu_torch.detect import detect_from_pools
 from nanomod_tpu_torch.native import load_native, require
 from nanomod_tpu_torch.rank.ranking import top_sites
@@ -54,7 +54,7 @@ def load_group_reads(folder: str, recursive: bool = True):
     ref mySimulate.py:101-122) with the native reader (fast5_ingest.cpp).
     Returns {filename: CorrectedRead} in file-walk order; a later file of
     the same name replaces the read but keeps the first one's place."""
-    from nanomod_tpu.native.fast5_bind import read_corrected_batch
+    from nanomod_tpu_torch.native.fast5_bind import read_corrected_batch
 
     require("fast5_ingest", "sort_core")
     paths = list(iter_fast5_files(folder, recursive=recursive))

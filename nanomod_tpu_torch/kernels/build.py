@@ -2,7 +2,8 @@
 
 The kernels are compiled by ``nvcc`` for Hopper (``sm_90a``) into one
 shared library with a plain C interface, at first use, into
-``nanomod_tpu_torch/_build/`` (listed in .gitignore).  No PyTorch header is
+``nanomod_tpu_torch/_build/`` (listed in .gitignore): one ``nvcc -c`` a
+source, all started at once, then one link.  No PyTorch header is
 included, so the build takes seconds, not minutes.  The library is rebuilt
 when any source is newer than it.
 
@@ -35,7 +36,7 @@ NVCC_FLAGS = [
     # the DP must round exactly like the reference's separate f32 ops:
     # no fused multiply-add contraction anywhere
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # kernel name -> launches made by its wrapper in this process
@@ -54,8 +55,8 @@ _SIGNATURES = {
     # stream
     "nm_banded_sw": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
                      _f, _f, _f, _f, _vp],
-    # tb, bi, bk, codes, bsz, m, w, stream
-    "nm_walk": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # tb, bi, bk, packed codes, bsz, m, w, stream
+    "nm_walk_packed": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     # v1, c1, C1, v2, c2, C2, P, is_i16, milli, out, stream
     "nm_battery": [_vp, _vp, _i, _vp, _vp, _i, _i, _i, _i, _vp, _vp],
     # v1, c1, C1, v2, c2, C2, row_index, P, cov, repeats, q_idx, seed_hi,
@@ -90,27 +91,52 @@ def _sources():
                   + glob.glob(os.path.join(SRC_DIR, "*.cuh")))
 
 
+def _run_all(cmds):
+    """Run the commands at once; returns [(cmd, returncode, output)]."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    done = []
+    for cmd, p in procs:
+        out = p.communicate()[0]
+        done.append((cmd, p.returncode, out))
+    return done
+
+
 def build() -> str:
-    """Compile csrc/*.cu into LIB_PATH unless it is up to date; returns the
-    library path.  Raises RuntimeError with nvcc's output on failure."""
+    """Compile csrc/*.cu into LIB_PATH unless it is up to date, one nvcc a
+    source in parallel, then link; returns the library path.  Raises
+    RuntimeError with nvcc's output on failure."""
     srcs = _sources()
     newest = max(os.path.getmtime(s) for s in srcs)
     if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", tmp]
-           + [s for s in srcs if s.endswith(".cu")])
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    cus = [s for s in srcs if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in cus]
+    tmp = f"{LIB_PATH}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["rebuilt"] = True
-    with open(BUILD_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+    try:
+        runs = _run_all([[nvcc] + NVCC_FLAGS + ["-c", s, "-o", o]
+                         for s, o in zip(cus, objs)])
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([[nvcc, "-shared", "-o", tmp] + objs])
+        BUILD_INFO["seconds"] = time.perf_counter() - t0
+        BUILD_INFO["rebuilt"] = True
+        log = "".join(" ".join(cmd) + "\n" + out for cmd, _, out in runs)
+        with open(BUILD_LOG, "w") as f:
+            f.write(log)
+        failed = [rc for _, rc, _ in runs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for path in objs + [tmp]:
+            if os.path.exists(path):
+                os.remove(path)
     return LIB_PATH
 
 

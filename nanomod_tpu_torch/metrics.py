@@ -7,7 +7,7 @@ import os
 
 import torch
 
-from nanomod_tpu.utils.observe import observer
+from nanomod_tpu_torch.utils.observe import observer
 from nanomod_tpu_torch.kernels.build import launch_counts
 
 

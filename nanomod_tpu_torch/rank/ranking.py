@@ -13,7 +13,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from nanomod_tpu.config import RankConfig, StatConfig
+from nanomod_tpu_torch.config import RankConfig, StatConfig
 from nanomod_tpu_torch.stats.battery import TestResult
 
 

@@ -6,8 +6,9 @@ device of their tensors:
 
   * ``banded_sw``   CPU -> ``banded_sw_plain`` (plain PyTorch, a loop over
                     rows); CUDA -> kernel K1 (resquiggle/banded_kernel.py)
-  * ``walk_device`` CPU -> ``walk_device_plain``; CUDA -> kernel K2
-                    (csrc/walk.cu)
+  * ``walk_packed`` CPU -> ``walk_packed_plain`` (``pack_codes2`` of the
+                    plain walk ``walk_device_plain``); CUDA -> kernel K2
+                    (csrc/walk.cu), which packs the codes itself
 
 ``pack_tb``, ``pack_outputs`` and ``pack_codes2`` are byte reshuffles in
 plain PyTorch on either device.  The host decoders (``unpack_outputs``,
@@ -185,42 +186,62 @@ def walk_device_plain(tb, best_i, best_k):
     return codes
 
 
-def walk_cuda(tb, best_i, best_k):
-    """Kernel K2 (csrc/walk.cu): the walk of walk_device_plain, one thread
-    per read.  CUDA tensors only."""
-    if tb.device.type != "cuda":
-        raise ValueError(f"walk_cuda needs CUDA tensors, got {tb.device}")
+def walk_packed_plain(tb, best_i, best_k):
+    """The walk's codes packed four a byte, [B, (2M+W)/4] uint8: plain
+    PyTorch, ``pack_codes2(walk_device_plain(...))``."""
+    return pack_codes2(walk_device_plain(tb, best_i, best_k))
+
+
+def walk_packed_cuda(tb, best_i, best_k):
+    """Kernel K2 (csrc/walk.cu) on CUDA tensors: what walk_packed_plain
+    gives, one warp a read, without the [B, 2M+W] code array."""
+    dev = tb.device
+    if dev.type != "cuda":
+        raise ValueError(f"walk_packed_cuda needs CUDA tensors, got {dev}")
+    if tb.dtype != torch.uint8 or tb.dim() != 3:
+        raise ValueError(f"tb must be [B, M, W] uint8, got {tb.dtype} "
+                         f"{tuple(tb.shape)}")
     bsz, m, w = tb.shape
-    if tb.dtype != torch.uint8:
-        raise ValueError(f"tb must be uint8, got {tb.dtype}")
+    if w <= 0 or w % 32 or w > 1024:
+        raise ValueError(f"band width {w} must be a multiple of 32 in "
+                         f"[32, 1024]")
+    if (2 * m + w) % 4:
+        raise ValueError(f"2M+W = {2 * m + w} steps do not pack four a byte")
     if best_i.shape != (bsz,) or best_k.shape != (bsz,):
         raise ValueError("best_i/best_k must be [B]")
+    for x in (best_i, best_k):
+        if x.device != dev or x.dtype != torch.int32:
+            raise ValueError("best_i/best_k must be int32 on tb's device")
     tb = tb.contiguous()
-    bi = best_i.to(device=tb.device, dtype=torch.int32).contiguous()
-    bk = best_k.to(device=tb.device, dtype=torch.int32).contiguous()
-    codes = torch.empty((bsz, 2 * m + w), dtype=torch.uint8,
-                        device=tb.device)
-    lib = kbuild.lib()
-    rc = lib.nm_walk(tb.data_ptr(), bi.data_ptr(), bk.data_ptr(),
-                     codes.data_ptr(), bsz, m, w,
-                     kbuild.stream_ptr(tb.device))
+    if tb.data_ptr() % 16:          # the kernel copies 16-byte pieces
+        tb = tb.clone()
+    bi = best_i.contiguous()
+    bk = best_k.contiguous()
+    codes = torch.empty((bsz, (2 * m + w) // 4), dtype=torch.uint8,
+                        device=dev)
+    rc = kbuild.lib().nm_walk_packed(tb.data_ptr(), bi.data_ptr(),
+                                     bk.data_ptr(), codes.data_ptr(), bsz,
+                                     m, w, kbuild.stream_ptr(dev))
     kbuild.check(rc, "walk")
     kbuild.LAUNCHES["walk"] += 1
     return codes
 
 
-def walk_device(tb, best_i, best_k):
-    """Traceback walk on the device of ``tb``: the plain version for CPU
-    tensors, kernel K2 for CUDA tensors (raises if it cannot launch)."""
+def walk_packed(tb, best_i, best_k):
+    """Packed traceback walk on the device of ``tb``: the plain version for
+    CPU tensors, kernel K2 for CUDA tensors (raises if it cannot
+    launch)."""
     if tb.device.type == "cpu":
-        return walk_device_plain(tb, best_i, best_k)
-    return walk_cuda(tb, best_i, best_k)
+        return walk_packed_plain(tb, best_i, best_k)
+    return walk_packed_cuda(tb, best_i, best_k)
 
 
 def pack_codes2(codes):
     """Pack the 2-bit walk codes (0..3) four per byte.  The step count
     2M+W must be a multiple of 4."""
     b, s = codes.shape
+    if s % 4:
+        raise ValueError(f"{s} steps do not pack four a byte")
     c = codes.reshape(b, s // 4, 4)
     return (c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4)
             | (c[..., 3] << 6))

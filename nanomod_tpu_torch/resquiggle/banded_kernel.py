@@ -4,7 +4,8 @@ Port of the Pallas TPU kernel nanomod_tpu/resquiggle/banded_pallas.py
 banded_sw_pallas: same inputs and outputs as resquiggle/banded.py
 banded_sw, array-equal to it.  Unlike the Pallas wrapper, no [B, M, W] f32
 substitution array is built (the kernel scores the u8 codes itself) and B
-need not be a multiple of 8.  The plain version is banded.banded_sw_plain.
+need not be a multiple of 8.  One warp aligns one read (see the kernel's
+source note).  The plain version is banded.banded_sw_plain.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ def banded_sw_cuda(read_codes, ref_window_codes, read_len, *,
         raise ValueError(f"banded_sw_cuda needs CUDA tensors, got {dev}")
     if read_codes.dtype != torch.uint8 or ref_window_codes.dtype != torch.uint8:
         raise ValueError("read/ref codes must be uint8")
+    if read_len.dtype != torch.int32:
+        raise ValueError(f"read_len must be int32, got {read_len.dtype}")
     if read_codes.dim() != 2 or ref_window_codes.dim() != 2:
         raise ValueError("read/ref codes must be 2-D")
     bsz, m = read_codes.shape
@@ -39,7 +42,7 @@ def banded_sw_cuda(read_codes, ref_window_codes, read_len, *,
             raise ValueError("all inputs must be on one device")
     read_c = read_codes.contiguous()
     ref_c = ref_window_codes.contiguous()
-    lens = read_len.to(torch.int32).contiguous()
+    lens = read_len.contiguous()
     tb = torch.empty((bsz, m, w), dtype=torch.uint8, device=dev)
     best = torch.empty(bsz, dtype=torch.float32, device=dev)
     bi = torch.empty(bsz, dtype=torch.int32, device=dev)

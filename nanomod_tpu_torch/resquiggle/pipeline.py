@@ -13,8 +13,9 @@ Differences from the reference: host-to-device copies go from pinned memory
 with ``non_blocking=True``; the packed result comes back by a non-blocking
 copy into pinned memory behind a ``torch.cuda.Event`` that
 ``fetch_outputs`` waits on; the device-walk path (``use_device_walk``,
-mode "codes2") is the only alignment path; ``n_devices > 1``, multi-host
-runs and the external aligners raise NotImplementedError.
+the walk's codes packed four a byte, mode "codes2") is the only alignment
+path; ``n_devices > 1``, multi-host runs and the external aligners raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,15 +28,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from nanomod_tpu.config import AnnotateConfig
-from nanomod_tpu.io import fast5 as fast5_io
-from nanomod_tpu.io.fast5 import (compress_corrected_arrays,
-                                  iter_fast5_files, read_raw_basecall,
-                                  write_corrected_events)
-from nanomod_tpu.io.fasta import FastaIndex
-from nanomod_tpu.signal.events import EventError, extract_events
-from nanomod_tpu.signal.normalize import (kmer_shift_scale, load_kmer_model,
-                                          mad_normalize)
+from nanomod_tpu_torch.config import AnnotateConfig
+from nanomod_tpu_torch.io import fast5 as fast5_io
+from nanomod_tpu_torch.io.fast5 import (compress_corrected_arrays,
+                                        iter_fast5_files, read_raw_basecall,
+                                        write_corrected_events)
+from nanomod_tpu_torch.io.fasta import FastaIndex
+from nanomod_tpu_torch.signal.events import EventError, extract_events
+from nanomod_tpu_torch.signal.normalize import (kmer_shift_scale, load_kmer_model,
+                                                mad_normalize)
 from nanomod_tpu_torch.device import resolve_device, to_device
 from nanomod_tpu_torch.resquiggle import banded
 from nanomod_tpu_torch.resquiggle.seed import SeedIndex, encode
@@ -71,8 +72,19 @@ def _length_bucket(m: int, buckets=(256, 512, 1024, 2048, 4096, 8192, 16384)) ->
     return ((m + 16383) // 16384) * 16384
 
 
-def _check_supported(cfg: AnnotateConfig):
-    """Raise for the reference options this port does not run."""
+def _check_supported(cfg: AnnotateConfig, device):
+    """Raise for the reference options this port does not run.  The band
+    width: the walk packs its 2M + W codes four a byte (the buckets make
+    2M a multiple of 4), and K1 and K2 take W lanes 32 to a warp."""
+    w = cfg.band_width
+    if torch.device(device).type == "cuda":
+        if w % 32 or not 32 <= w <= 1024:
+            raise NotImplementedError(
+                f"band_width={w}: the CUDA kernels take a multiple of 32 "
+                f"in [32, 1024]")
+    elif w % 4 or w < 4:
+        raise NotImplementedError(
+            f"band_width={w}: the packed walk takes a multiple of 4")
     if cfg.align != "dp":
         raise NotImplementedError(
             f"align={cfg.align!r}: external aligners are not ported")
@@ -127,7 +139,7 @@ def _wrap_with_hit(path, read_id, seq, ev_start, ev_length, norm_signal,
     """Build the PreparedRead for a seeded read."""
     if hit is None or hit.votes < 3:
         return None, "Not in alignment sam"
-    from nanomod_tpu.io.fasta import revcomp
+    from nanomod_tpu_torch.io.fasta import revcomp
     fwd_seq = seq if hit.strand == "+" else revcomp(seq)
     return PreparedRead(
         path=path, read_id=read_id, fwd_seq=fwd_seq, chrom=hit.chrom,
@@ -149,9 +161,9 @@ def prepare_batch(paths: List[str], cfg: AnnotateConfig,
     """
     from concurrent.futures import ThreadPoolExecutor
 
-    from nanomod_tpu.native.prepare_bind import (model_tables,
-                                                 native_prepare_batch)
-    from nanomod_tpu.utils.observe import stage
+    from nanomod_tpu_torch.native.prepare_bind import (model_tables,
+                                                       native_prepare_batch)
+    from nanomod_tpu_torch.utils.observe import stage
     from nanomod_tpu_torch.native import require
 
     require("fast5_ingest")
@@ -214,10 +226,9 @@ class DPBatch:
     reads: List[PreparedRead]
     host: torch.Tensor          # [B, 12 + .] uint8 (banded.pack_outputs)
     event: Optional[object]     # torch.cuda.Event, None on the CPU
-    tail_shape: tuple           # per-read code payload shape
+    tail_shape: tuple           # per-read packed code shape
     lens: np.ndarray
     win_starts: np.ndarray
-    mode: str                   # "codes2" (2-bit packed) or "codes"
 
 
 def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
@@ -255,11 +266,7 @@ def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
         match=cfg.match_score, mismatch=cfg.mismatch_score,
         go=cfg.gap_open, ge=cfg.gap_extend,
     )
-    codes = banded.walk_device(tb, bi, bk)
-    mode = "codes"
-    if codes.shape[1] % 4 == 0:
-        codes = banded.pack_codes2(codes)
-        mode = "codes2"
+    codes = banded.walk_packed(tb, bi, bk)    # the buckets give 4 | 2M+W
     packed = banded.pack_outputs(codes, best, bi, bk)
     event = None
     host = packed
@@ -269,7 +276,7 @@ def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(device))
     return DPBatch(reads, host, event, tuple(codes.shape[1:]), lens,
-                   win_starts, mode)
+                   win_starts)
 
 
 def fetch_outputs(batch: DPBatch):
@@ -290,7 +297,7 @@ def finish_alignment(batch: DPBatch, cfg: AnnotateConfig):
     n = len(batch.reads)
     ops_all = banded.decode_walk_native(
         codes[:n], bi[:n], bk[:n], nthreads=_host_workers(cfg, cap=8),
-        packed=batch.mode == "codes2")
+        packed=True)
     out = []
     for i in range(n):
         if best[i] < _min_score(cfg, int(batch.lens[i])):
@@ -313,11 +320,11 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
-    from nanomod_tpu.native.annotate_bind import annotate_codes_batch_native
-    from nanomod_tpu.utils.observe import stage
+    from nanomod_tpu_torch.native.annotate_bind import annotate_codes_batch_native
+    from nanomod_tpu_torch.utils.observe import stage
     from nanomod_tpu_torch.native import require
 
-    _check_supported(cfg)
+    _check_supported(cfg, device)
     use_native_write = cfg.fast5_compression == "gzip"
     require("annotate_core", "traceback",
             *(("fast5_write",) if use_native_write else ()))
@@ -391,7 +398,7 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
                 signal_hist[wnd] += cnt
             good.append((r, payload))
         if use_native_write and good:
-            from nanomod_tpu.native.fast5_write_bind import (
+            from nanomod_tpu_torch.native.fast5_write_bind import (
                 write_corrected_batch_native)
             mask = write_corrected_batch_native(
                 [r.path for r, _ in good], [p for _, p in good],
@@ -422,7 +429,7 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
                 codes[:n], bi[:n], bk[:n], accept, dpb.win_starts[:n],
                 dpb.reads, fasta, cfg.min_num_signal,
                 cfg.resegment_signal_wind, cfg.more_signal_perc,
-                nthreads=workers, packed=dpb.mode == "codes2")
+                nthreads=workers, packed=True)
             s.add(n)
         out = []
         for r, (payload, err) in zip(dpb.reads, res):
@@ -524,9 +531,9 @@ def annotate_files(paths: List[str], cfg: AnnotateConfig, device="cuda"):
 
     Returns (n_ok, errors {key: [paths]}, signalnum histogram).
     """
-    import nanomod_tpu
+    import nanomod_tpu_torch
     device = resolve_device(device)
-    nanomod_tpu.tune_malloc()
+    nanomod_tpu_torch.tune_malloc()
     fasta, seed_index, kmer_model = _load_inputs(cfg)
     return _run_chunks(_chunked(paths, cfg), cfg, fasta, seed_index,
                        kmer_model, device)
@@ -538,19 +545,19 @@ def annotate_folder(cfg: AnnotateConfig, device="cuda"):
     launch counts (in cfg.metrics_file when set)."""
     import time
 
-    import nanomod_tpu
-    from nanomod_tpu.utils.observe import observer, report
+    import nanomod_tpu_torch
+    from nanomod_tpu_torch.utils.observe import observer, report
     from nanomod_tpu_torch.metrics import write_metrics
 
     device = resolve_device(device)
-    nanomod_tpu.tune_malloc()
+    nanomod_tpu_torch.tune_malloc()
     observer().reset()
     start = time.time()
     paths = list(iter_fast5_files(cfg.wrk_base1, recursive=cfg.recursive))
     print(f"Total f5={len(paths)}")
     if cfg.resume:
         _h5py_required(paths, "--resume")
-        from nanomod_tpu.io.fast5 import has_corrected_group
+        from nanomod_tpu_torch.io.fast5 import has_corrected_group
         n_before = len(paths)
         paths = [p for p in paths if not has_corrected_group(p)]
         print(f"Resume: {n_before - len(paths)} already annotated, "

@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from nanomod_tpu.io.fasta import revcomp
+from nanomod_tpu_torch.io.fasta import revcomp
 
 _CODE = np.full(256, 4, dtype=np.int64)
 for _i, _b in enumerate(b"ACGT"):

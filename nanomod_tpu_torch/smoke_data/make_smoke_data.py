@@ -5,7 +5,7 @@ committed: a 1,000-bp synthetic genome (``ref.fa``), a control group and a
 case group of 16 raw reads each (read length 900, 2 % basecall errors), the
 case shifted by 6 pA at MOD_POS and by half that at its two neighbours.
 Datasets are gzip-compressed, which the native reader
-(nanomod_tpu/native/fast5_ingest.cpp) inflates.  Signal, events and layout
+(nanomod_tpu_torch/native/fast5_ingest.cpp) inflates.  Signal, events and layout
 come from tests/fixtures.py (simulate_raw_read, the albacore-2 layout).
 
     python nanomod_tpu_torch/smoke_data/make_smoke_data.py
@@ -60,7 +60,7 @@ def _write_read(path, seq, rng, read_number, **kw):
 
 def _group(folder, chrom, genome, seed, mod_pos=None, mod_delta_pa=0.0):
     """tests/fixtures.make_raw_dataset's read layout, gzip datasets."""
-    from nanomod_tpu.io.fasta import revcomp
+    from nanomod_tpu_torch.io.fasta import revcomp
     rng = np.random.default_rng(seed)
     os.makedirs(folder)
     for i in range(N_READS):

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from nanomod_tpu.config import StatConfig
+from nanomod_tpu_torch.config import StatConfig
 from nanomod_tpu_torch.device import resolve_device, to_device
 from nanomod_tpu_torch.stats import kernels, special
 

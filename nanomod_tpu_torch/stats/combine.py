@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from nanomod_tpu.config import StatConfig
+from nanomod_tpu_torch.config import StatConfig
 from nanomod_tpu_torch.stats import special
 
 

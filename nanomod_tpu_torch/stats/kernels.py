@@ -203,9 +203,9 @@ def battery_components_packed(values1, counts1, values2, counts2):
 # (kernel K6, csrc/capped_ks.cu).
 # ---------------------------------------------------------------------------
 
-# the i32 bound of the exact components (battery._check_i32_bounds)
-MAX_COV = 645
-MAX_REPEATS = 8192
+# shared memory a block of K6 may use on Hopper (227 KB): the two
+# subsamples (min(cov, width) floats a group) and the R numerators
+SMEM_LIMIT = 232448
 
 
 def capped_draws_plain(counts, row_index, *, cov, repeats, seed, group):
@@ -236,11 +236,10 @@ def _subsample(values, counts, row_index, *, cov, repeats, seed, group):
 
 
 def _check_capped_args(cov, repeats, quantile_idx):
-    if not 1 <= cov <= MAX_COV:
-        raise ValueError(f"cov must be in [1, {MAX_COV}], got {cov}")
-    if not 1 <= repeats <= MAX_REPEATS:
-        raise ValueError(f"repeats must be in [1, {MAX_REPEATS}], "
-                         f"got {repeats}")
+    if cov < 1:
+        raise ValueError(f"cov must be at least 1, got {cov}")
+    if repeats < 1:
+        raise ValueError(f"repeats must be at least 1, got {repeats}")
     if not 0 <= quantile_idx < repeats:
         raise ValueError(f"quantile_idx must be in [0, {repeats}), "
                          f"got {quantile_idx}")
@@ -317,6 +316,12 @@ def capped_ks_d_cuda(values1, counts1, values2, counts2, row_index=None, *,
         raise ValueError(f"row_index must be int32, got {row_index.dtype}")
     if repeats * cov >= 2 ** 31:
         raise ValueError("repeats * cov must stay below 2^31")
+    smem = 4 * (min(cov, v1.shape[1]) + min(cov, v2.shape[1]) + repeats)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K6 needs {smem} bytes of shared memory a block "
+                         f"(cov {cov}, widths {v1.shape[1]} and "
+                         f"{v2.shape[1]}, repeats {repeats}): more than the "
+                         f"card's {SMEM_LIMIT}")
     v1 = v1.contiguous()
     v2 = v2.contiguous()
     n1 = counts1.to(torch.int32).contiguous()

@@ -69,7 +69,7 @@ def test_walk_and_packing_byte_equal(dp):
     *_, want, got = dp
     codes_j = np.asarray(jb.walk_device(want[0], want[2], want[3]))
     t_tb, t_best, t_bi, t_bk = _torch(*got)
-    codes_t = tb.walk_device(t_tb, t_bi, t_bk)
+    codes_t = tb.walk_device_plain(t_tb, t_bi, t_bk)
     np.testing.assert_array_equal(codes_j, codes_t.numpy())
     packed_t = tb.pack_codes2(codes_t)
     np.testing.assert_array_equal(np.asarray(jb.pack_codes2(codes_j)),
@@ -88,7 +88,7 @@ def test_walk_and_packing_byte_equal(dp):
 def test_host_decoders_agree(dp):
     *_, got = dp
     t_tb, _, t_bi, t_bk = _torch(*got)
-    codes = tb.walk_device(t_tb, t_bi, t_bk).numpy()
+    codes = tb.walk_device_plain(t_tb, t_bi, t_bk).numpy()
     packed = tb.pack_codes2(torch.from_numpy(codes)).numpy()
     np.testing.assert_array_equal(tb.unpack_codes2(packed), codes)
     nat = tb.decode_walk_native(packed, got[2], got[3], packed=True)
@@ -99,6 +99,22 @@ def test_host_decoders_agree(dp):
         np.testing.assert_array_equal(nat[i][0], ot)
         np.testing.assert_array_equal(nat[i][0], trace[i][0])
         np.testing.assert_array_equal(nat[i][1], trace[i][1])
+
+
+def test_packed_walk_equals_packed_jax_walk(dp):
+    """The packed walk (K2's plain version) is pack_codes2 of the JAX
+    walk_device, byte for byte."""
+    *_, want, got = dp
+    codes_j = jb.walk_device(want[0], want[2], want[3])
+    t_tb, _, t_bi, t_bk = _torch(*got)
+    packed = tb.walk_packed(t_tb, t_bi, t_bk)
+    assert packed.dtype == torch.uint8
+    assert packed.shape == (t_tb.shape[0], (2 * t_tb.shape[1]
+                                            + t_tb.shape[2]) // 4)
+    np.testing.assert_array_equal(np.asarray(jb.pack_codes2(codes_j)),
+                                  packed.numpy())
+    np.testing.assert_array_equal(
+        tb.walk_packed_plain(t_tb, t_bi, t_bk).numpy(), packed.numpy())
 
 
 def test_pack_outputs_rounds_half_to_even():
@@ -117,7 +133,7 @@ def test_cpu_tensors_take_the_plain_version():
     read, ref, lens = _inputs(b=2, m=256, w=128, seed=5)
     before = kbuild.launch_counts()
     out = tb.banded_sw(*_torch(read, ref, lens))
-    tb.walk_device(out[0], out[2], out[3])
+    tb.walk_packed(out[0], out[2], out[3])
     assert kbuild.launch_counts() == before
 
 
@@ -127,6 +143,48 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         banded_sw_cuda(read, ref, lens)
     with pytest.raises(ValueError, match="CUDA"):
-        tb.walk_cuda(torch.zeros((2, 4, 32), dtype=torch.uint8),
-                     torch.zeros(2, dtype=torch.int32),
-                     torch.zeros(2, dtype=torch.int32))
+        tb.walk_packed_cuda(torch.zeros((2, 4, 32), dtype=torch.uint8),
+                            torch.zeros(2, dtype=torch.int32),
+                            torch.zeros(2, dtype=torch.int32))
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so that a wrapper's checks
+    run up to the launch without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _on_cuda(t):
+    return t.as_subclass(_OnCuda)
+
+
+@pytest.mark.parametrize("bad", ["read_dtype", "ref_dtype", "len_dtype"])
+def test_k1_wrapper_refuses_wrong_dtypes(bad):
+    from nanomod_tpu_torch.resquiggle.banded_kernel import banded_sw_cuda
+    read, ref, lens = _torch(*_inputs(b=2, m=64, w=32, seed=7))
+    if bad == "read_dtype":
+        read = read.to(torch.int32)
+    elif bad == "ref_dtype":
+        ref = ref.to(torch.int64)
+    else:
+        lens = lens.to(torch.int64)
+    with pytest.raises(ValueError, match="uint8|int32"):
+        banded_sw_cuda(*map(_on_cuda, (read, ref, lens)))
+
+
+@pytest.mark.parametrize("bad", ["tb_dtype", "best_dtype", "unpackable"])
+def test_k2_wrapper_refuses_wrong_dtypes(bad):
+    tbm = torch.zeros((2, 64, 32), dtype=torch.uint8)
+    bi = torch.zeros(2, dtype=torch.int32)
+    bk = torch.zeros(2, dtype=torch.int32)
+    if bad == "tb_dtype":
+        tbm = tbm.to(torch.int16)
+    elif bad == "best_dtype":
+        bi = bi.to(torch.int64)
+    else:
+        tbm = torch.zeros((2, 63, 32), dtype=torch.uint8)   # 2M+W = 158
+    with pytest.raises(ValueError, match="uint8|int32|pack"):
+        tb.walk_packed_cuda(*map(_on_cuda, (tbm, bi, bk)))

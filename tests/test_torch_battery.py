@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from nanomod_tpu.config import StatConfig
+from nanomod_tpu import config as jcfg
 from nanomod_tpu.stats import battery as jbat
 from nanomod_tpu.stats import kernels as jk
+from nanomod_tpu_torch import config as tcfg
 from nanomod_tpu_torch.kernels import build as kbuild
 from nanomod_tpu_torch.stats import battery as tbat
 from nanomod_tpu_torch.stats import kernels as tk
@@ -127,14 +128,22 @@ def test_backend_selection(monkeypatch):
 
 @pytest.mark.parametrize("backend", ["device", "host"])
 def test_capped_ks_raises(backend):
-    """A cap above K6's exact-int32 bound (645), with a row above it."""
+    """A cap above 645 (which K6 once refused), with a row of 1,000 above
+    it: the port's run_battery equals the JAX package's (the row's pooled
+    width, 1,000 + <= 200, stays within the battery's int32 bound)."""
     v1, n1, v2, n2 = _pools(7, p=16)
     v1 = np.pad(v1, ((0, 0), (0, 1000 - v1.shape[1])))
     n1[3] = 1000
     n2[3] = min(n2[3], 200)
-    with pytest.raises(ValueError, match="cov"):
-        tbat.run_battery(v1, n1, v2, n2, cfg=StatConfig(coverages=(646, 646)),
-                         backend=backend, device="cpu")
+    v1[3, 45:] = np.round(np.random.default_rng(70).normal(0, 1, 955), 3)
+    kw = dict(coverages=(646, 646), downsampling=4)
+    want = jbat.run_battery(v1, n1, v2, n2, cfg=jcfg.StatConfig(**kw),
+                            backend=backend)
+    got = tbat.run_battery(v1, n1, v2, n2, cfg=tcfg.StatConfig(**kw),
+                           backend=backend, device="cpu")
+    for key in ("stu", "pu", "stks", "pks"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key),
+                                      err_msg=key)
 
 
 @pytest.mark.parametrize("quantile", [0.25, 1.0])
@@ -144,13 +153,15 @@ def test_capped_ks_matches_jax(backend, quantile):
     row offset and tiles that cut the capped rows; a quantile of 1 takes
     the last repeat, as the reference's index does."""
     v1, n1, v2, n2 = _pools(8, p=300)
-    cfg = StatConfig(coverages=(12, 20), downsampling=16,
-                     downsampling_quantile=quantile)
+    ckw = dict(coverages=(12, 20), downsampling=16,
+               downsampling_quantile=quantile)
     for strand in ("+", "-"):
-        kw = dict(strand=strand, cfg=cfg, row_offset=40, want_mstd=True)
-        want = jbat.run_battery(v1, n1, v2, n2, backend=backend, **kw)
+        kw = dict(strand=strand, row_offset=40, want_mstd=True)
+        want = jbat.run_battery(v1, n1, v2, n2, backend=backend,
+                                cfg=jcfg.StatConfig(**ckw), **kw)
         got = tbat.run_battery(v1, n1, v2, n2, backend=backend, device="cpu",
-                               tile_positions=128, **kw)
+                               tile_positions=128, cfg=tcfg.StatConfig(**ckw),
+                               **kw)
         for key in ("stu", "pu", "stks", "pks", "mstd"):
             np.testing.assert_array_equal(getattr(got, key),
                                           getattr(want, key), err_msg=key)

@@ -2,8 +2,9 @@
 version) must be array-equal to the reference's capped_ks_d on the same
 numpy inputs, made from a seed: int16 milli and f32 pools, mixed types,
 rows below, at and above the cap (counts of 0 and 1 included), non-zero
-row indices, the first and the last quantile, NaN padding, and pools
-narrower than the cap."""
+row indices, the first and the last quantile, NaN padding, pools narrower
+than the cap, and caps above 645 (where a group of up to 1,000 is
+subsampled, and where no row is capped)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +47,7 @@ CASES = {
     "nan_padding": ("nan", 32, 40, 40, 16, 12, 3, 0),
     "narrow": ("i16", 16, 8, 8, 20, 6, 1, 3),
     "cov1": ("f32", 16, 16, 16, 1, 5, 1, 0),
+    "cov646": ("i16", 7, 700, 300, 646, 4, 1, 9),
 }
 
 
@@ -87,8 +89,37 @@ def test_row_index_keys_the_draws_not_the_tile():
     np.testing.assert_array_equal(none.numpy(), want)   # offset 0
 
 
-@pytest.mark.parametrize("bad", [dict(cov=0), dict(cov=646),
-                                 dict(quantile_idx=20), dict(repeats=0)])
+def _deep(rng, p, cov):
+    """int16 pools of one group holding 650-1,000 observations and one
+    holding at most 290 (the battery's pooled-width bound, 1,290)."""
+    v1 = (rng.integers(-40, 41, (p, 1000)) * 25).astype(np.int16)
+    v2 = (rng.integers(-35, 46, (p, 290)) * 25).astype(np.int16)
+    n1 = rng.integers(650, 1001, p).astype(np.int32)
+    n2 = rng.integers(0, 291, p).astype(np.int32)
+    n1[:3] = (650, min(cov, 1000), 1000)
+    n2[:3] = (290, 1, 0)
+    return v1, n1, v2, n2
+
+
+@pytest.mark.parametrize("cov,repeats,q", [(700, 6, 1), (2000, 3, 2)])
+def test_plain_equals_jax_above_645(cov, repeats, q):
+    """At cov = 700 the rows above 700 are subsampled; at cov = 2000 no
+    row is capped and every repeat is the whole pool."""
+    rng = np.random.default_rng(cov)
+    v1, n1, v2, n2 = _deep(rng, 5, cov)
+    rows = (np.arange(5) + 123).astype(np.int32)
+    kw = dict(cov=cov, repeats=repeats, quantile_idx=q, seed=3)
+    want = np.asarray(jax_capped_ks_d(jnp.asarray(v1), jnp.asarray(n1),
+                                      jnp.asarray(v2), jnp.asarray(n2),
+                                      jnp.asarray(rows), **kw))
+    got = kernels.capped_ks_d_plain(
+        *[torch.from_numpy(x) for x in (v1, n1, v2, n2, rows)], **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (n1 > cov).any() == (cov == 700) and (want > 0).sum() >= 4
+
+
+@pytest.mark.parametrize("bad", [dict(cov=0), dict(quantile_idx=20),
+                                 dict(repeats=0)])
 def test_bad_arguments_raise(bad):
     _, args, kw = _run_both("i16")
     with pytest.raises(ValueError):

@@ -37,22 +37,81 @@ def _reads(rng, b, m, w):
     return read, ref, lens
 
 
-@pytest.mark.parametrize("b,m,w", [(3, 256, 128), (13, 512, 64),
-                                   (5, 256, 256), (9, 300, 32)])
-def test_k1_k2_match_plain(dev, b, m, w):
-    rng = np.random.default_rng(b * m + w)
-    read, ref, lens = (torch.from_numpy(x).to(dev) for x in _reads(rng, b, m, w))
+def _ties(rng, b, m, w):
+    """Tandem-repeat reads on tandem-repeat windows: the best score is
+    reached at several cells, across rows and within a row."""
+    unit = np.array([0, 1, 0, 1, 2], np.uint8)
+    ref = np.resize(unit, (b, m + w)).copy()
+    read = np.resize(unit, (b, m)).copy()
+    for i in range(b):
+        read[i] = np.roll(read[i], i)
+        cut = rng.integers(m // 4, m)
+        read[i, cut:cut + 3] = 3               # one break in the repeat
+    lens = np.full(b, m, np.int32)
+    return read, ref, lens
+
+
+def _mismatch(rng, b, m, w):
+    """Every code mismatches (read A, window C): best 0 at (0, 0)."""
+    return (np.zeros((b, m), np.uint8), np.ones((b, m + w), np.uint8),
+            rng.integers(1, m + 1, b).astype(np.int32))
+
+
+def _k1_k2_equal(dev, read, ref, lens, **score):
+    read, ref, lens = (torch.from_numpy(x).to(dev) for x in (read, ref, lens))
     before = kbuild.launch_counts()
-    got = banded.banded_sw(read, ref, lens, match=2, mismatch=-4, go=-6, ge=-1)
-    want = banded.banded_sw_plain(read, ref, lens, match=2, mismatch=-4,
-                                  go=-6, ge=-1)
+    got = banded.banded_sw(read, ref, lens, **score)
+    want = banded.banded_sw_plain(read, ref, lens, **score)
     for a, c in zip(got, want):
         assert torch.equal(a, c)
-    codes = banded.walk_device(got[0], got[2], got[3])
-    assert torch.equal(codes, banded.walk_device_plain(got[0], got[2], got[3]))
+    packed = banded.walk_packed(got[0], got[2], got[3])
+    assert torch.equal(packed,
+                       banded.walk_packed_plain(got[0], got[2], got[3]))
     after = kbuild.launch_counts()
     assert after["banded_sw"] == before["banded_sw"] + 1
     assert after["walk"] == before["walk"] + 1
+    return got
+
+
+@pytest.mark.parametrize("b,m,w", [(3, 256, 128), (13, 512, 64),
+                                   (5, 256, 256), (9, 300, 32),
+                                   (37, 256, 128), (4, 128, 1024),
+                                   (6, 160, 96)])
+def test_k1_k2_match_plain(dev, b, m, w):
+    rng = np.random.default_rng(b * m + w)
+    _k1_k2_equal(dev, *_reads(rng, b, m, w), match=2, mismatch=-4, go=-6,
+                 ge=-1)
+
+
+@pytest.mark.parametrize("w", [32, 128])
+def test_k1_k2_ties(dev, w):
+    rng = np.random.default_rng(w)
+    got = _k1_k2_equal(dev, *_ties(rng, 37, 256, w))
+    # the best value is held by more than one cell of the matrix
+    assert got[1].min() > 0
+
+
+def test_k1_k2_all_mismatch(dev):
+    got = _k1_k2_equal(dev, *_mismatch(np.random.default_rng(1), 11, 128,
+                                       128))
+    assert float(got[1].abs().max()) == 0.0
+    assert int(got[2].abs().max()) == 0 and int(got[3].abs().max()) == 0
+
+
+def test_k2_start_outside_the_matrix(dev):
+    """A start cell that K1 never gives (rows past the end, lanes off the
+    band on either side) walks with the reference's clamps."""
+    rng = np.random.default_rng(3)
+    read, ref, lens = (torch.from_numpy(x).to(dev)
+                       for x in _reads(rng, 40, 256, 64))
+    tbm = banded.banded_sw(read, ref, lens)[0]
+    bi = torch.from_numpy(rng.integers(-2, 256 + 3, 40).astype(np.int32))
+    bk = torch.from_numpy(rng.integers(-2, 64 + 3, 40).astype(np.int32))
+    bi[:4] = torch.tensor([256, 300, -1, 100], dtype=torch.int32)
+    bk[:4] = torch.tensor([-1, 64, 5, 65], dtype=torch.int32)
+    bi, bk = bi.to(dev), bk.to(dev)
+    assert torch.equal(banded.walk_packed(tbm, bi, bk),
+                       banded.walk_packed_plain(tbm, bi, bk))
 
 
 def test_k1_rejects_bad_band(dev):
@@ -137,8 +196,25 @@ def test_k6_matches_plain(dev, dtype, cov, reps, q):
                            kernels.capped_draws_plain(t[group * 2 + 1], t[4], **d))
 
 
+@pytest.mark.parametrize("cov,reps", [(700, 6), (2000, 3)])
+def test_k6_above_645_matches_plain(dev, cov, reps):
+    """One group of 650-1,000 observations, the other at most 290: at
+    cov = 700 the deep rows are subsampled, at 2000 no row is capped."""
+    rng = np.random.default_rng(cov)
+    p = 64
+    v1 = (rng.integers(-40, 41, (p, 1000)) * 25).astype(np.int16)
+    v2 = (rng.integers(-35, 46, (p, 290)) * 25).astype(np.int16)
+    n1 = rng.integers(650, 1001, p).astype(np.int32)
+    n2 = rng.integers(0, 291, p).astype(np.int32)
+    rows = (np.arange(p) + 11).astype(np.int32)
+    t = [torch.from_numpy(x).to(dev) for x in (v1, n1, v2, n2, rows)]
+    kw = dict(cov=cov, repeats=reps, quantile_idx=1, seed=5)
+    assert torch.equal(kernels.capped_ks_d(*t, **kw),
+                       kernels.capped_ks_d_plain(*t, **kw))
+
+
 def test_run_battery_capped_device_equals_host(dev):
-    from nanomod_tpu.config import StatConfig
+    from nanomod_tpu_torch.config import StatConfig
     rng = np.random.default_rng(10)
     p, c = 3000, 64
     v1 = np.round(rng.normal(0, 1, (p, c)), 3).astype(np.float32)

@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 
 from fixtures import make_genome, make_raw_dataset
-from nanomod_tpu.config import AnnotateConfig, DetectConfig, RankConfig
+from nanomod_tpu import config as jcfg
 from nanomod_tpu.detect import run_detect as jax_run_detect
 from nanomod_tpu.resquiggle.pipeline import annotate_folder as jax_annotate
 from nanomod_tpu_torch import cli as torch_cli
+from nanomod_tpu_torch import config as tcfg
 
 MOD_POS = 201
 
@@ -44,7 +45,7 @@ def chain(tmp_path_factory):
             shutil.copytree(raw[group], d)
             dirs[impl, group] = d
     for group in ("ctrl", "case"):
-        n_ok, errors = jax_annotate(AnnotateConfig(
+        n_ok, errors = jax_annotate(jcfg.AnnotateConfig(
             wrk_base1=dirs["jax", group], ref_fasta=fasta))
         assert n_ok >= 10, errors
         torch_cli.main(["Annotate", "--wrkBase1", dirs["torch", group],
@@ -77,10 +78,10 @@ def test_detect_sign_test_byte_identical(chain, capsys):
     root, chrom, dirs = chain
     jax_out = os.path.join(root, "jax_out")
     torch_out = os.path.join(root, "torch_out")
-    jax_run_detect(DetectConfig(
+    jax_run_detect(jcfg.DetectConfig(
         wrk_base1=dirs["jax", "ctrl"], wrk_base2=dirs["jax", "case"],
         out_folder=jax_out, min_lr=0, min_coverage=5,
-        rank=RankConfig(window=3)))
+        rank=jcfg.RankConfig(window=3)))
     capsys.readouterr()
     torch_cli.main(["detect", "--wrkBase1", dirs["torch", "ctrl"],
                     "--wrkBase2", dirs["torch", "case"],
@@ -103,6 +104,7 @@ def test_prepare_and_alignment_match_jax(chain):
     """prepare_batch, dispatch_dp and finish_alignment of the port give the
     reference's prepared reads and alignment ops on the same raw files."""
     from nanomod_tpu.io.fasta import FastaIndex
+    from nanomod_tpu_torch.io.fasta import FastaIndex as TorchFastaIndex
     from nanomod_tpu.resquiggle import pipeline as jp
     from nanomod_tpu.resquiggle.seed import SeedIndex as JaxSeedIndex
     from nanomod_tpu_torch.resquiggle import pipeline as tp
@@ -111,18 +113,20 @@ def test_prepare_and_alignment_match_jax(chain):
     root = chain[0]
     folder = os.path.join(root, "raw_case")
     paths = sorted(os.path.join(folder, n) for n in os.listdir(folder))
-    cfg = AnnotateConfig(wrk_base1=folder,
-                         ref_fasta=os.path.join(root, "ref.fa"))
+    kw = dict(wrk_base1=folder, ref_fasta=os.path.join(root, "ref.fa"))
+    cfg = jcfg.AnnotateConfig(**kw)
+    tcf = tcfg.AnnotateConfig(**kw)
     fasta = FastaIndex(cfg.ref_fasta)
     want, werr = jp.prepare_batch(paths, cfg, JaxSeedIndex(fasta.seqs), None)
-    got, gerr = tp.prepare_batch(paths, cfg, SeedIndex(fasta.seqs), None)
+    got, gerr = tp.prepare_batch(paths, tcf, SeedIndex(fasta.seqs), None)
     assert dict(werr) == dict(gerr)
     assert [r.path for r in got] == [r.path for r in want]
     for a, b in zip(got, want):
         assert (a.fwd_seq, a.chrom, a.strand, a.diag) == \
             (b.fwd_seq, b.chrom, b.strand, b.diag)
         np.testing.assert_array_equal(a.norm_signal, b.norm_signal)
-    ops_t = tp.finish_alignment(tp.dispatch_dp(got, fasta, cfg, "cpu"), cfg)
+    ops_t = tp.finish_alignment(
+        tp.dispatch_dp(got, TorchFastaIndex(cfg.ref_fasta), tcf, "cpu"), tcf)
     ops_j = jp.finish_alignment(jp.dispatch_dp(want, fasta, cfg), cfg)
     assert len(ops_t) == len(ops_j) == len(got)
     for (ot, wt), (oj, wj) in zip(ops_t, ops_j):
@@ -138,9 +142,25 @@ def test_prepare_and_alignment_match_jax(chain):
                                 dict(use_device_walk=False)])
 def test_annotate_unported_options_raise(chain, kw):
     from nanomod_tpu_torch.resquiggle.pipeline import process_prepared
-    cfg = AnnotateConfig(ref_fasta=os.path.join(chain[0], "ref.fa"), **kw)
+    cfg = tcfg.AnnotateConfig(ref_fasta=os.path.join(chain[0], "ref.fa"), **kw)
     with pytest.raises(NotImplementedError):
         process_prepared([], cfg, None, "cpu")
+
+
+@pytest.mark.parametrize("width,device,ok", [
+    (130, "cpu", False), (132, "cpu", True), (132, "cuda", False),
+    (96, "cuda", True), (2048, "cuda", False)])
+def test_annotate_band_width_checked(width, device, ok):
+    """The reference runs any band width; the port's packed walk takes a
+    multiple of 4, its CUDA kernels a multiple of 32 up to 1024.  The check
+    comes before any device work, so the CUDA cases run without a card."""
+    from nanomod_tpu_torch.resquiggle.pipeline import _check_supported
+    cfg = tcfg.AnnotateConfig(band_width=width)
+    if ok:
+        _check_supported(cfg, device)
+    else:
+        with pytest.raises(NotImplementedError, match="band_width"):
+            _check_supported(cfg, device)
 
 
 @pytest.mark.parametrize("kw", [dict(merge_mode="sharded"),
@@ -149,7 +169,7 @@ def test_annotate_unported_options_raise(chain, kw):
 def test_detect_unported_options_raise(kw):
     from nanomod_tpu_torch.detect import run_detect
     with pytest.raises(NotImplementedError):
-        run_detect(DetectConfig(**kw), device="cpu")
+        run_detect(tcfg.DetectConfig(**kw), device="cpu")
 
 
 _NO_H5PY = r"""

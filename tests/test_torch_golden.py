@@ -10,8 +10,8 @@ import os
 import numpy as np
 import pytest
 
-from nanomod_tpu.accum.pools import PoolBuilder
-from nanomod_tpu.config import DetectConfig, StatConfig
+from nanomod_tpu_torch.accum.pools import PoolBuilder
+from nanomod_tpu_torch.config import DetectConfig, StatConfig
 from nanomod_tpu_torch.detect import detect_from_pools, save_sign_test
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")

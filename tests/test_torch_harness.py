@@ -9,6 +9,7 @@ for run_simulate, run_simulat2 and run_downsampling, the grid run in two
 shards, and the CLI subcommands.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -20,6 +21,7 @@ from nanomod_tpu import cli as jax_cli
 from nanomod_tpu.config import RankConfig, SimulateConfig, replace
 from nanomod_tpu.harness import simulate as jsim
 from nanomod_tpu_torch import cli as torch_cli
+from nanomod_tpu_torch import config as tconfig
 from nanomod_tpu_torch.harness import simulate as tsim
 
 MOD_POS = 120
@@ -63,6 +65,17 @@ def _cfg(root, chrom, case, ctrl, out, **kw):
     return replace(cfg, **kw) if kw else cfg
 
 
+def _to_port(cfg):
+    """The port's config of the same class with the fields of a JAX-package
+    config."""
+    cls = getattr(tconfig, type(cfg).__name__)
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        kw[f.name] = _to_port(v) if dataclasses.is_dataclass(v) else v
+    return cls(**kw)
+
+
 def _read(cfg, file_id=None):
     path = os.path.join(cfg.out_folder, (file_id or cfg.file_id) + ".output")
     with open(path, "rb") as f:
@@ -73,7 +86,7 @@ def _both(cfg, run_jax, run_torch):
     """Run both harnesses on cfg with their own out folders; return the
     two configs."""
     cj = replace(cfg, out_folder=cfg.out_folder + "_jax")
-    ct = replace(cfg, out_folder=cfg.out_folder + "_torch")
+    ct = _to_port(replace(cfg, out_folder=cfg.out_folder + "_torch"))
     run_jax(cj)
     run_torch(ct)
     return cj, ct
@@ -144,7 +157,7 @@ def test_grid_two_shards_output_equal(grid_data):
         percentages=(0.9,), random_times=2, foldersep=1,
         rank=RankConfig(window=2))
     cj = replace(cfg, out_folder=cfg.out_folder + "_jax")
-    ct = replace(cfg, out_folder=cfg.out_folder + "_torch")
+    ct = _to_port(replace(cfg, out_folder=cfg.out_folder + "_torch"))
     fids, _ = jsim.run_simulate_grid(cj)
     shards = [tsim.run_simulate_grid(ct, process_id=pid, process_count=2,
                                      device="cpu") for pid in range(2)]

@@ -1,6 +1,6 @@
 """The port imports torch and never jax (nor triton, which is imported only
-inside the launching function of a Triton kernel), and its device
-selection never falls back."""
+inside the launching function of a Triton kernel), nor any module of the
+JAX package ``nanomod_tpu``; its device selection never falls back."""
 
 import os
 import subprocess
@@ -22,6 +22,8 @@ for name in names:
     importlib.import_module(name)
 print(",".join(names))
 print("jax" in sys.modules, "triton" in sys.modules, "torch" in sys.modules)
+print(",".join(sorted(m for m in sys.modules
+                      if m == "nanomod_tpu" or m.startswith("nanomod_tpu."))))
 """
 
 
@@ -37,9 +39,15 @@ def test_no_port_module_imports_jax():
                 "resquiggle.pipeline", "resquiggle.seed",
                 "resquiggle.annotate", "stats.kernels", "stats.battery",
                 "stats.special", "stats.combine", "stats.threefry",
-                "rank.ranking", "native", "harness.simulate"):
+                "rank.ranking", "harness.simulate", "config", "io.fast5",
+                "io.fasta", "signal.events", "signal.normalize",
+                "accum.pools", "utils.observe", "native.build",
+                "native.fast5_bind", "native.annotate_bind",
+                "native.fast5_write_bind", "native.prepare_bind",
+                "native.format_bind"):
         assert f"nanomod_tpu_torch.{mod}" in names, mod
     assert out[1] == "False False True", out[1]
+    assert len(out) == 2 or out[2] == "", f"JAX-package modules: {out[2]}"
 
 
 def test_resolve_device_cpu():

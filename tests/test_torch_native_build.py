@@ -1,10 +1,7 @@
-"""The port's native loader (nanomod_tpu_torch/native.py) builds a library
-under an inter-process lock through a temporary file, so that processes
-starting at once never open a half-written library.
-
-The reference's loader compiles straight into the final path and caches a
-failed open for the rest of the process; the port's processes (test
-workers, CLI processes) go through this loader instead.
+"""The port's native loader (nanomod_tpu_torch/native/build.py) builds a
+library under an inter-process lock through a temporary file, so that
+processes starting at once (test workers, CLI processes) never open a
+half-written library.
 """
 
 import ctypes
@@ -17,8 +14,7 @@ import time
 
 import pytest
 
-from nanomod_tpu.native import build as ref_build
-from nanomod_tpu_torch import native
+from nanomod_tpu_torch.native import build as native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME = "traceback"
@@ -26,11 +22,11 @@ NAME = "traceback"
 _WORKER = r"""
 import ctypes, sys, time
 sys.path.insert(0, sys.argv[1])
-from nanomod_tpu_torch import native
+from nanomod_tpu_torch.native import build as native
 start = float(sys.argv[3])
 while time.time() < start:
     time.sleep(0.001)
-lib = ctypes.CDLL(native.build("traceback", native_dir=sys.argv[2]))
+lib = ctypes.CDLL(native.build("traceback", sys.argv[2], sys.argv[2]))
 print("ok" if hasattr(lib, "decode_walk_batch") else "no symbol")
 """
 
@@ -64,7 +60,7 @@ def test_four_processes_build_at_once(tmp_path):
     outs = [p.communicate(timeout=300) for p in procs]
     assert [p.returncode for p in procs] == [0] * 4, outs
     assert [o.strip() for o, _ in outs] == ["ok"] * 4, outs
-    lib = native.lib_path(NAME, d)
+    lib = native.lib_path(NAME, build_dir=d)
     assert _whole_elf(lib)
     assert hasattr(ctypes.CDLL(lib), "decode_walk_batch")
     assert sorted(os.listdir(d)) == [f"lib{NAME}.so", f"{NAME}.cpp"]
@@ -74,35 +70,15 @@ def test_half_written_library_is_rebuilt(tmp_path):
     """A library cut short by an in-place writer (newer than its source,
     so it looks up to date) is rebuilt whole before it is opened."""
     d = _copy_source(tmp_path)
-    lib = native.build(NAME, native_dir=d)
+    lib = native.build(NAME, src_dir=d, build_dir=d)
     with open(lib, "rb") as f:
         data = f.read()
     with open(lib, "wb") as f:
         f.write(data[: len(data) // 3])
     assert not _whole_elf(lib) and not native.is_whole(lib)
-    dll = native.open_library(NAME, native_dir=d)
+    dll = native.open_library(NAME, src_dir=d, build_dir=d)
     assert hasattr(dll, "decode_walk_batch")
     assert _whole_elf(lib)
-
-
-def test_load_native_serves_the_reference_binds():
-    """The handle the port loads is the one the reference's binds get, so
-    no reference bind compiles in place in a port process."""
-    dll = native.load_native("sort_core")
-    assert dll is not None
-    assert ref_build.load_native("sort_core") is dll
-    assert _whole_elf(native.lib_path("sort_core"))
-
-
-def test_reference_loader_names(monkeypatch):
-    """The private names of the reference loader that the port shares are
-    all there, and the port's loader refuses to start without one."""
-    assert native._reference_loader() is ref_build
-    for name in native._REF_NAMES:
-        assert hasattr(ref_build, name), name
-    monkeypatch.delattr(ref_build, "_OPTIONAL_FLAGS")
-    with pytest.raises(ImportError, match="_OPTIONAL_FLAGS"):
-        native._reference_loader()
 
 
 def test_require_returns_the_handles():
