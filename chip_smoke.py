@@ -21,10 +21,16 @@ Phase 1  K1 (banded DP) and K2 (the traceback walk, codes packed four a
 Phase 2  K3 (battery components) at detect scale: P = 1,048,576 positions
          in tiles of 16,384, counts 30..100 per group (capacity 128), int16
          milli values with heavy ties, rows with count 0 and 1, plus a tile
-         at C1 = C2 = 645 and an f32 tile.  The [9, P] rows must be
-         array-equal to the plain version on the card and to the native
+         at C1 = C2 = 645 and an f32 tile, then every hard-case tile of
+         kernels/hardcases.py whole (16,384 rows; 512 at 645 + 645): NaN
+         inside the valid prefix, -0.0 and +0.0, one tie run, one value a
+         group, counts 0 and 1, full rows either side of K3's warp/block
+         switch.  The rows must be array-equal to the plain version on the
+         card and, int16 rows with both groups non-empty, to the native
          host battery; run_battery on the device must equal run_battery on
-         the host backend.
+         the host backend.  One more device run_battery runs under
+         torch.profiler: K3's summed device time, the device-busy share of
+         the call and its top host operations.
 Phase 3  the main path through its entry points: ``python -m
          nanomod_tpu_torch.cli Annotate`` on a control and a case group of
          raw FAST5s (nanomod_tpu_torch/smoke_data, each file copied 64 times:
@@ -40,9 +46,13 @@ Phase 4  K6 (coverage-capped KS) against its plain version on the card: one
          version on the first 2,048 rows); a tile of capped and uncapped
          rows (counts 0, 1, cov, cov + 1), an f32 tile and an f32 tile with
          NaN padding, whole, and a tile at cov = 700 (one group of 650-1,000
-         observations, the other at most 290), whole.  Outputs must be
-         array-equal, and K6's own threefry draws equal to the plain
-         replica's.
+         observations, the other at most 290), whole; then every K6
+         hard-case tile of kernels/hardcases.py at the capped detect's
+         shapes (1,024 x 512, cov = 200, R = 100), whole: NaN inside the
+         valid prefix, -0.0 and +0.0, one tie run, every value distinct,
+         counts 0, 1, cov and cov + 1, one group under cov and the other
+         over.  Outputs must be array-equal, and K6's own threefry draws
+         equal to the plain replica's.
 Phase 5  the new entry points on phase 3's corrected groups: ``cli detect
          --coverages 200-200 --downsampling 100 --mstd 1`` (planted site
          first, K6 launched; sign-test and meanstd files byte-equal to the
@@ -58,18 +68,18 @@ Phase 6  K6 at the main path's own shapes: the capped detect again, in
          widths detect gives) and timing each launch with CUDA events
          inside the run; K6 against its plain version on those tensors,
          whole, both timed.  The kernels line gives K6's times at that
-         input.
+         input; its bound is printed beside the draws' share of it.
 
 Kernel times are medians of 3 samples after one warm-up, each sample 10
 back-to-back calls between two CUDA events, divided by 10 (the ``ms`` of
 the kernels line); each kernel is also timed as single launches, one call
-between two events (``*_single_ms``, the yardstick of the times recorded
+between two events (``single_ms``, the yardstick of the times recorded
 for the first kernels, which includes the host's launch overhead); a plain
 version's time
 is one run after its comparison run.  Each kernel's bound is the larger of
 the bytes it must move (inputs read once, outputs written once; for the
 walk, the cells this run's walks visit) over 3.35 TB/s and its operations
-over their type's peak (f32 67 TFLOP/s, INT32 16.7 TOP/s; an H100 SXM at
+over their type's peak (f32 67 TFLOP/s, INT32 33.5 TOP/s; an H100 SXM at
 700 W); the battery kernels count the operations of a sort-and-merge
 evaluation, not their own pairwise compares.  Any failure raises (non-zero
 exit), and so does a module of the JAX package found loaded at the end.
@@ -77,6 +87,7 @@ The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel.
 """
 
+import functools
 import json
 import os
 import shutil
@@ -95,6 +106,7 @@ MAIN_PATH_BUCKET = 1024
 BATTERY_P = 1 << 20
 BATTERY_TILE = 16384
 BATTERY_CAP = 128
+DEEP_BATTERY_P = 512         # rows of the capacity-1,024 tiles (645 + 645)
 COPIES = 64
 SMOKE_MOD_POS = 500          # smoke_data/make_smoke_data.py MOD_POS
 CAPPED_P = 16384
@@ -104,6 +116,9 @@ CAPPED_R = 100
 CAPPED_Q = 25                # int(100 * 0.25)
 CAPPED_PLAIN_ROWS = 2048
 CAPPED_ROW0 = 1 << 20
+# phase 4's hard-case tiles: the capped detect's width and cap
+HARD_K6_P = 1024
+HARD_K6_WIDTH = 512
 # phase 5's --coverages.  Interior positions hold 512 observations a
 # group (8 reads a strand, each copied 64 times), so 200 caps them all.  At
 # 100 the genome's last positions (one case read against two or three
@@ -131,12 +146,14 @@ DEEP_COV = 700
 # yardstick of time_ms(..., n=1))
 RECORDED_MS = {"banded_sw": (0.656, 0.677), "walk": (0.592, 0.611)}
 # an H100 SXM's published peaks at 700 W: HBM3 rate, dense f32 outside the
-# tensor cores; INT32 is not in the data sheet: 64 INT32 lanes an SM
-# (Hopper's SM, half its 128 f32 lanes) x 132 SMs x 1.98 GHz, the clock at
-# which 128 f32 lanes give 67 TFLOP/s
+# tensor cores.  INT32 is not in the data sheet: an SM issues at most four
+# warp instructions a clock (128 lanes), and 32-bit integer adds and logic
+# run on its 64 INT32 lanes and, as IMAD, on its FMA lanes, so 128 lanes x
+# 132 SMs x 1.98 GHz (the clock at which 128 f32 lanes give 67 TFLOP/s) is
+# the ceiling.  64 lanes an SM is no ceiling: K6's draws run faster.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # K1's f32 operations a DP cell: F (2 adds, 1 max), diagonal (1 add), Hnoe
 # (2 max), Hnoe - ge*k (1 sub), running max (1), E (1 add), H (1 max), the
 # extend tests (4 adds, 2 compares), the source (3 compares), the best (1)
@@ -153,9 +170,10 @@ K2_OPS_PER_STEP = 12
 WALK_KS_OPS = 6
 WALK_RANK_OPS = 3
 MILLI_MOMENT_OPS = 4
-# integer operations a threefry2x32 block (20 rounds of add, rotate, xor
-# and the key injections), two blocks a drawn index
-THREEFRY_OPS = 100
+# integer operations a threefry2x32 block: 20 rounds of add, rotate and
+# xor, 12 key-injection adds and the xor of the two output words; two
+# blocks a drawn index
+THREEFRY_OPS = 73
 
 
 def log(*a):
@@ -283,16 +301,131 @@ def ops_of(values, n):
     return {"f32_ops" if values.is_floating_point() else "int_ops": n}
 
 
-def k3_work(torch, v1, n1, v2, n2):
-    """K3's bytes (values and counts read, 9 [P] int32 rows written) and
-    the operations of a sort-and-merge evaluation of every row."""
+def k3_work(torch, v1, n1, v2, n2, milli=True):
+    """K3's bytes (values and counts read, 9 [P] int32 rows written, 3
+    without the milli moments) and the operations of a sort-and-merge
+    evaluation of every row."""
     c1 = n1.to(torch.int64).clamp(0, v1.shape[1])
     c2 = n2.to(torch.int64).clamp(0, v2.shape[1])
+    per_value = WALK_KS_OPS + WALK_RANK_OPS + (MILLI_MOMENT_OPS if milli
+                                               else 0)
     ops = int((sort_compares(torch, c1) + sort_compares(torch, c2)
-               + (WALK_KS_OPS + WALK_RANK_OPS + MILLI_MOMENT_OPS)
-               * (c1 + c2)).sum())
+               + per_value * (c1 + c2)).sum())
     return dict(bytes_moved=v1.nbytes + v2.nbytes + n1.nbytes + n2.nbytes
-                + 36 * n1.shape[0], **ops_of(v1, ops))
+                + (36 if milli else 12) * n1.shape[0], **ops_of(v1, ops))
+
+
+def k3_hard_cases(torch, dev, kernels, battery):
+    """K3 on every hard-case tile (kernels/hardcases.py) at the main path's
+    shapes, whole: array-equal to its plain version, and int16 rows with
+    both groups non-empty to the native host battery.  Returns the tiles'
+    shapes."""
+    from nanomod_tpu_torch.kernels import hardcases
+    shapes = {}
+    for case in hardcases.K3_CASES:
+        p = DEEP_BATTERY_P if case == "deep_645" else BATTERY_TILE
+        arrays = hardcases.k3_tile(case, p, seed=len(case))
+        t = [torch.from_numpy(x).to(dev) for x in arrays]
+        milli = case not in hardcases.F32_CASES
+        got = kernels.battery_rows_cuda(*t, milli=milli)
+        if not torch.equal(got, kernels.battery_rows_plain(*t, milli=milli)):
+            raise AssertionError(f"K3 differs from plain on the {case} tile")
+        if milli:
+            v1, n1, v2, n2 = arrays
+            comp = battery.milli_components(got.cpu().numpy())
+            both = (n1 > 0) & (n2 > 0)
+            for key, want in battery.host_components(*arrays).items():
+                if not np.array_equal(comp[key][both], want[both]):
+                    raise AssertionError(f"K3 {key} differs from the host "
+                                         f"battery on the {case} tile")
+        shapes[case] = [list(arrays[0].shape), list(arrays[2].shape)]
+    return shapes
+
+
+def _device_us(evt):
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0))
+
+
+def profile_run_battery(torch, battery, kernels, args, dev):
+    """One device run_battery under torch.profiler (CPU and CUDA
+    activities): K3's summed device time, the device-busy share of the
+    call (summed device time of every kernel and copy over its wall time)
+    and the top host operations by self CPU time.  The numpy work that
+    the profiler does not see is timed by host clocks around run_battery's
+    steps (``host_s``, summed over the calls; encode runs on four threads).
+    Where the trace holds no device time, CUDA events around each K3
+    launch and the host clock give K3's time and the call's."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    steps = {"encode": "_tile_slice", "to_device": "to_device_tile",
+             "finalize": "finalize_packed", "to_pinned": "_to_pinned"}
+    host_s = dict.fromkeys(steps, 0.0)
+    originals = {step: getattr(battery, name) for step, name in steps.items()}
+
+    def clocked(step):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return originals[step](*a, **kw)
+            finally:
+                host_s[step] += time.perf_counter() - t
+        return call
+
+    torch.cuda.synchronize()
+    for step, name in steps.items():
+        setattr(battery, name, clocked(step))
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            battery.run_battery(*args, device=dev,
+                                tile_positions=BATTERY_TILE)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        for step, name in steps.items():
+            setattr(battery, name, originals[step])
+    avgs = prof.key_averages()
+    device_us = sum(_device_us(e) for e in avgs)
+    k3 = [e for e in avgs if "battery_warp" in e.key
+          or "battery_block" in e.key]
+    top = sorted(avgs, key=lambda e: e.self_cpu_time_total, reverse=True)
+    res = {"wall_s": wall_s, "source": "torch.profiler", "host_s": host_s,
+           "device_ms": device_us / 1e3,
+           "k3_device_ms": sum(_device_us(e) for e in k3) / 1e3,
+           "k3_launches": sum(e.count for e in k3),
+           "device_busy_share": device_us / 1e6 / wall_s,
+           "top_device": [[e.key[:60], _device_us(e) / 1e3, e.count]
+                          for e in sorted(avgs, key=_device_us,
+                                          reverse=True)[:6]],
+           "top_host": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count]
+                        for e in top[:10]]}
+    if device_us > 0:
+        return res
+    launch = kernels.battery_rows_cuda
+    events = []
+
+    def timed(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = launch(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    kernels.battery_rows_cuda = timed
+    try:
+        t0 = time.perf_counter()
+        battery.run_battery(*args, device=dev, tile_positions=BATTERY_TILE)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        kernels.battery_rows_cuda = launch
+    k3_ms = sum(a.elapsed_time(b) for a, b in events)
+    res.update(source="CUDA events (the trace held no device time)",
+               wall_s=wall_s, k3_device_ms=k3_ms, k3_launches=len(events),
+               device_busy_share=k3_ms / 1e3 / wall_s)
+    return res
 
 
 def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
@@ -428,9 +561,9 @@ def phase2(torch, dev):
             raise AssertionError(f"K3 {key} differs from the host battery")
 
     # the deepest exact case (C1 = C2 = 645) and an f32 tile
-    d1 = (rng.integers(-8, 9, (512, 1024)) * 125).astype(np.int16)
-    d2 = (rng.integers(-8, 9, (512, 1024)) * 125).astype(np.int16)
-    dc = np.full(512, 645, np.int32)
+    d1 = (rng.integers(-8, 9, (DEEP_BATTERY_P, 1024)) * 125).astype(np.int16)
+    d2 = (rng.integers(-8, 9, (DEEP_BATTERY_P, 1024)) * 125).astype(np.int16)
+    dc = np.full(DEEP_BATTERY_P, 645, np.int32)
     deep = [torch.from_numpy(x).to(dev) for x in (d1, dc, d2, dc)]
     deep_k = kernels.battery_rows_cuda(*deep, milli=True)
     if not torch.equal(deep_k, kernels.battery_rows_plain(*deep, milli=True)):
@@ -447,6 +580,7 @@ def phase2(torch, dev):
     if not torch.equal(kernels.battery_rows_cuda(*fl, milli=False),
                        kernels.battery_rows_plain(*fl, milli=False)):
         raise AssertionError("K3 f32 rank rows differ from plain")
+    hard = k3_hard_cases(torch, dev, kernels, battery)
 
     k_ms = time_ms(torch, lambda: run(kernels.battery_rows_cuda))
     p_ms = time_ms(torch, lambda: run(kernels.battery_rows_plain),
@@ -458,6 +592,16 @@ def phase2(torch, dev):
     tile_plain_ms = time_ms(
         torch, lambda: kernels.battery_rows_plain(*tile, milli=True))
     tile_bound = bound(**k3_work(torch, *tile))
+    # the f32 tile (rank rows only) and the capacity-1,024 tile at 645 + 645
+    others = {}
+    for what, args, milli in (("f32", fl, False), ("deep", deep, True)):
+        kern = functools.partial(kernels.battery_rows_cuda, *args, milli=milli)
+        plain = functools.partial(kernels.battery_rows_plain, *args,
+                                  milli=milli)
+        others[what] = {
+            "ms": time_ms(torch, kern), "single_ms": time_ms(torch, kern, n=1),
+            "plain_ms": time_ms(torch, plain),
+            "bound": bound(**k3_work(torch, *args, milli=milli))}
 
     # the whole battery (encode, H2D, K3, D2H, float64 finalize) against
     # the host backend, on pools of at least one observation per group
@@ -476,6 +620,9 @@ def phase2(torch, dev):
     for key in ("stu", "pu", "stt", "pt", "stks", "pks"):
         if not np.array_equal(getattr(res_d, key), getattr(res_h, key)):
             raise AssertionError(f"run_battery {key}: device != host")
+    trace = profile_run_battery(torch, battery, kernels,
+                                (pools1, m1, pools2, m2), dev)
+    log("phase2 run_battery trace", json.dumps(trace))
     res = {
         "P": p, "tile": BATTERY_TILE, "cap": c,
         "k3_max_abs_err": max_abs_err(torch, [(rows_k, rows_p)]),
@@ -483,6 +630,12 @@ def phase2(torch, dev):
         "k3_tile_ms": tile_ms, "k3_tile_single_ms": tile_single_ms,
         "k3_tile_plain_ms": tile_plain_ms,
         "k3_tile_bound_ms": tile_bound[0], "k3_tile_bound_by": tile_bound[1],
+        "hard_case_tiles": hard,
+        **{f"k3_{what}_{key}": v for what, o in others.items()
+           for key, v in (("ms", o["ms"]), ("single_ms", o["single_ms"]),
+                          ("plain_ms", o["plain_ms"]),
+                          ("bound_ms", o["bound"][0]),
+                          ("bound_by", o["bound"][1]))},
         "k3_sites_per_s": p / (k_ms / 1e3),
         "plain_sites_per_s": p / (p_ms / 1e3),
         "host_sites_per_s": p / host_s,
@@ -663,12 +816,21 @@ def k6_work(torch, args, kw):
                 * torch.where(c > cov, reps, 1) for c in (c1, c2))
     walk = WALK_KS_OPS * (c1.clamp(max=cov) + c2.clamp(max=cov)) * evals
     values_ops = int((sorts + walk).sum() + capped.sum() * reps)
-    draws = int(((c1 > cov).sum() + (c2 > cov).sum()) * reps * cov)
     bytes_moved = (v1.nbytes + v2.nbytes + n1.nbytes + n2.nbytes
                    + rows.nbytes + 4 * n1.shape[0])
     ops = ops_of(v1, values_ops)
-    ops["int_ops"] = ops.get("int_ops", 0) + 2 * THREEFRY_OPS * draws
+    ops["int_ops"] = ops.get("int_ops", 0) + k6_draw_ops(torch, args, kw)
     return dict(bytes_moved=bytes_moved, **ops)
+
+
+def k6_draw_ops(torch, args, kw):
+    """The integer operations of K6's threefry draws alone: R cov indices
+    a capped group, two blocks each (the floor of any K6)."""
+    v1, n1, v2, n2, _ = args
+    cov = kw["cov"]
+    capped = sum(int((n.to(torch.int64).clamp(0, v.shape[1]) > cov).sum())
+                 for v, n in ((v1, n1), (v2, n2)))
+    return 2 * THREEFRY_OPS * capped * kw["repeats"] * cov
 
 
 def deep_tile(rng):
@@ -719,6 +881,19 @@ def phase4(torch, dev):
             raise AssertionError(f"K6 differs from plain on the {kind} tile")
         errs.append((a, b))
         extra[kind] = int((x[1] > CAPPED_COV).sum() + (x[3] > CAPPED_COV).sum())
+    from nanomod_tpu_torch.kernels import hardcases
+    hard_kw = dict(kw, cov=DETECT_COV)
+    for case in hardcases.K6_CASES:
+        x = on_card(*hardcases.k6_tile(case, HARD_K6_P, HARD_K6_WIDTH,
+                                       DETECT_COV, seed=len(case)),
+                    np.arange(HARD_K6_P, dtype=np.int32) + 5)
+        a = kernels.capped_ks_d_cuda(*x, **hard_kw)
+        b = kernels.capped_ks_d_plain(*x, **hard_kw)
+        if not torch.equal(a, b):
+            raise AssertionError(f"K6 differs from plain on the {case} tile")
+        errs.append((a, b))
+        extra[case] = int((x[1] > DETECT_COV).sum()
+                          + (x[3] > DETECT_COV).sum())
     x = on_card(*deep_tile(rng), np.arange(DEEP_P, dtype=np.int32) + 3)
     deep_kw = dict(kw, cov=DEEP_COV)
     a = kernels.capped_ks_d_cuda(*x, **deep_kw)
@@ -926,6 +1101,8 @@ def phase6(torch, dev, tmp, groups):
     }
     res["k6_bound_ms"], res["k6_bound_by"] = bound(**k6_work(torch, args,
                                                              kw))
+    res["k6_draws_bound_ms"] = bound(0, int_ops=k6_draw_ops(torch, args,
+                                                            kw))[0]
     log("phase6", json.dumps(res))
     return res
 
@@ -986,7 +1163,8 @@ def main() -> int:
          "replaces": "nanomod_tpu/resquiggle/banded_pallas.py:133",
          "launches": p3["launches"]["banded_sw"],
          "max_abs_err": max(r["k1_max_abs_err"] for r in dp_runs),
-         "ms": main_dp["k1_ms"], "plain_ms": main_dp["k1_plain_ms"],
+         "ms": main_dp["k1_ms"], "single_ms": main_dp["k1_single_ms"],
+         "plain_ms": main_dp["k1_plain_ms"],
          "bound_ms": main_dp["k1_bound_ms"],
          "bound_by": main_dp["k1_bound_by"], "library_ms": None},
         {"name": "walk", "route": "cuda",
@@ -994,7 +1172,8 @@ def main() -> int:
          "replaces": "nanomod_tpu/resquiggle/banded.py:189",
          "launches": p3["launches"]["walk"],
          "max_abs_err": max(r["k2_max_abs_err"] for r in dp_runs),
-         "ms": main_dp["k2_ms"], "plain_ms": main_dp["k2_plain_ms"],
+         "ms": main_dp["k2_ms"], "single_ms": main_dp["k2_single_ms"],
+         "plain_ms": main_dp["k2_plain_ms"],
          "bound_ms": main_dp["k2_bound_ms"],
          "bound_by": main_dp["k2_bound_by"], "library_ms": None},
         {"name": "battery", "route": "cuda",
@@ -1002,7 +1181,8 @@ def main() -> int:
          "replaces": "nanomod_tpu/stats/kernels.py:186",
          "launches": p3["launches"]["battery"],
          "max_abs_err": p2["k3_max_abs_err"],
-         "ms": p2["k3_tile_ms"], "plain_ms": p2["k3_tile_plain_ms"],
+         "ms": p2["k3_tile_ms"], "single_ms": p2["k3_tile_single_ms"],
+         "plain_ms": p2["k3_tile_plain_ms"],
          "bound_ms": p2["k3_tile_bound_ms"],
          "bound_by": p2["k3_tile_bound_by"], "library_ms": None},
         {"name": "capped_ks", "route": "cuda",
@@ -1010,7 +1190,8 @@ def main() -> int:
          "replaces": "nanomod_tpu/stats/kernels.py:279",
          "launches": p5["capped_launches"]["capped_ks"],
          "max_abs_err": max(p4["k6_max_abs_err"], p6["k6_max_abs_err"]),
-         "ms": p6["k6_ms"], "plain_ms": p6["k6_plain_ms"],
+         "ms": p6["k6_ms"], "single_ms": p6["k6_single_ms"],
+         "plain_ms": p6["k6_plain_ms"],
          "bound_ms": p6["k6_bound_ms"], "bound_by": p6["k6_bound_by"],
          "library_ms": None},
     ]

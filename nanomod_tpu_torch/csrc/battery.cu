@@ -1,112 +1,277 @@
 // K3: per-position two-sample battery components (KS, Mann-Whitney U,
 // tie sums, exact milli-domain Welch sums), Hopper.
 //
-// Replaces the XLA device function nanomod_tpu/stats/kernels.py
-// battery_components_packed_milli (with _pairwise_counts,
-// _pairwise_components and _milli_exact_sums) and the rank rows of
-// battery_components_packed.  Everything reduces to pairwise <= / < counts
-// of each pooled value against each group, so every output is an exact
-// int32, bit-equal to the JAX function and to the native host battery
-// (sort_core.cpp nm_battery_milli):
+// Replaces the XLA device function nanomod_tpu/stats/kernels.py:186
+// battery_components_packed_milli (with _pairwise_counts :53,
+// _pairwise_components :70 and _milli_exact_sums :168) and the rank rows of
+// battery_components_packed (:150).  For each valid pooled value z of a row
+// and each group g, le_g(z) = #{valid v in g : v <= z} and lt_g(z) = #{v <
+// z}; every output is an exact int32 of these counts, bit-equal to the JAX
+// function and to the native host battery (sort_core.cpp nm_battery_milli):
 //
-//   0 ks_num  = max_q |le_a(q)*n2 - le_b(q)*n1|      (D = ks_num/(n1*n2))
-//   1 two_rank_sum = sum over group-1 q of cnt_lt + cnt_le + 1
-//   2 tie_sum = sum over q of t*t - 1,  t = cnt_le - cnt_lt
+//   0 ks_num  = max_z |le_a(z)*n2 - le_b(z)*n1|      (D = ks_num/(n1*n2))
+//   1 two_rank_sum = sum over group-1 z of lt + le + 1  (lt, le pooled)
+//   2 tie_sum = sum over z of t*t - 1,  t = le - lt
 //   3-5 sum1, sum(x*x >> 15), sum(x*x & 0x7fff) of group 1  (milli only)
 //   6-8 the same for group 2                                 (milli only)
 //
-// The JAX version builds the [P, C, N] compare tensor (fused by XLA on the
-// TPU); a naive PyTorch port would materialise it in device memory.  Here
-// one block takes one position row: the row's valid values of both groups
-// (at most 1,290 of them, about 2.6 KB as int16) are staged in shared
-// memory, each thread counts a strided share of the pooled queries against
-// them in registers, and the block reduces the partial sums with warp
-// shuffles.  What bounds it: N^2 compares per row from shared memory
-// (N ~ 60-200 at real coverage), so the kernel is bound by shared-memory
-// bandwidth and issue rate, not by device memory (the inputs are read
-// once).  Templated on the value type: int16 milli tiles and f32 tiles.
+// n1, n2 in the KS formula are the counts as given; the valid prefix of a
+// group is clamp(count, 0, width).  A NaN (f32 tiles only) is neither <=
+// nor < anything: it adds 0 to every count, and as a query it adds 0 to the
+// KS max, 1 to the rank sum if it is in group 1, and -1 to the tie sum.
+//
+// What bounds it on this card.  The inputs are read once (2 bytes a value
+// on the main path), so the roofline bound is the bytes: 2.7 us for a
+// 16,384 x 128 int16 tile.  The first design compared every pooled value
+// with every value of both groups, N^2 compares a row from shared memory
+// (N ~ 60-200), about 49x that bound.  This one sorts each row once and
+// reads every count off the sorted order.
+//
+// Warp variant (pooled width c1 + c2 <= 256, the main path: counts of 30-100
+// are bucketed to 128 a group).  One warp a row, eight rows a block, no
+// __syncthreads.  The pooled values are loaded 32 E at a time (E = 1, 2, 4
+// or 8 from the tile's width) as keys (value key << 1 | is-group-1) into E
+// registers a lane, NaNs and padding past every real key, and sorted by a
+// register bitonic network (sortsearch.cuh).  In sorted order a tie run is
+// a stretch of equal value keys: for an element at sorted index i in the
+// run [s, e], lt = s and le = e + 1 (pooled), and le_a is the number of
+// group-1 elements at or before e.  Two ballots a register (run ends, group
+// 1) and prefix counts over the E registers give s, e and le_a with find
+// first / last set bit and popc, so the rank and tie sums take one pass and
+// the KS max is read at the run ends.  Work a row: the sort's E (log2 32E
+// + 1) log2 32E / 2 compare-exchanges a lane (half the registers where the
+// row fills at most half), then ~20 operations an element.
+//
+// Block variant (c1 + c2 > 256: rows up to 645 a group, capacity 1024; the
+// wrapper accepts c1 + c2 <= 8192).  One block a row: each group's keys are
+// sorted in shared memory (one segmented bitonic sort, the groups padded to
+// a power of two), and every valid pooled value searches its lower and upper
+// bound in both sorted groups (4 binary searches).  The tile's widths pick
+// the variant; there is no knob.
+//
+// The milli moment rows 3-8 keep their single pass over the loaded values.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sortsearch.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int NWARPS = THREADS / 32;
+using nm_sort::NAN_KEY;
+using nm_sort::block_sort;
+using nm_sort::count_below;
+using nm_sort::sort_key;
+using nm_sort::warp_sort;
+
 constexpr int NOUT = 9;
+constexpr int WARP_ROWS = 8;         // rows (warps) a block, warp variant
+constexpr int WARP_MAX_POOL = 256;   // widest pooled row of the warp variant
+constexpr int BLOCK_THREADS = 256;   // block variant
+constexpr int BLOCK_WARPS = BLOCK_THREADS / 32;
+
+// the warp variant's sort key: value key << 1 | is-group-1 (int16 keys have
+// 16 bits, f32 keys 32)
+template <typename T> struct PoolKey { using K = unsigned long long; };
+template <> struct PoolKey<int16_t> { using K = uint32_t; };
 
 __device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+  return __reduce_add_sync(0xffffffffu, v);
 }
 
 __device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = max(v, __shfl_down_sync(0xffffffffu, v, o));
-  return v;
+  return __reduce_max_sync(0xffffffffu, v);
 }
 
-template <typename T, bool MILLI>
-__global__ void __launch_bounds__(THREADS)
-    battery_kernel(const T* __restrict__ v1, const int32_t* __restrict__ c1,
-                   int cap1, const T* __restrict__ v2,
-                   const int32_t* __restrict__ c2, int cap2, int p_total,
-                   int32_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  __shared__ int red[NWARPS][NOUT];
+// one row's moments, milli rows 3-8 (acc[3..5] group 1, acc[6..8] group 2;
+// acc is indexed by constants only so it stays in registers)
+__device__ __forceinline__ void add_moments(int (&acc)[NOUT], int x,
+                                            bool g1) {
+  const int sq = x * x;
+  if (g1) {
+    acc[3] += x;
+    acc[4] += sq >> 15;
+    acc[5] += sq & 0x7fff;
+  } else {
+    acc[6] += x;
+    acc[7] += sq >> 15;
+    acc[8] += sq & 0x7fff;
+  }
+}
 
-  const int p = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int n1r = c1[p];  // counts as given (the formula uses them as is)
+template <typename T, bool MILLI, int E>
+__global__ void __launch_bounds__(WARP_ROWS * 32)
+    battery_warp(const T* __restrict__ v1, const int32_t* __restrict__ c1,
+                 int cap1, const T* __restrict__ v2,
+                 const int32_t* __restrict__ c2, int cap2, int p_total,
+                 int32_t* __restrict__ out) {
+  using K = typename PoolKey<T>::K;
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * WARP_ROWS + (threadIdx.x >> 5);
+  if (p >= p_total) return;  // the whole warp leaves together
+  const int n1r = c1[p];     // counts as given (the KS formula uses them)
   const int n2r = c2[p];
   const int n1 = min(max(n1r, 0), cap1);  // valid prefix lengths
   const int n2 = min(max(n2r, 0), cap2);
   const int n = n1 + n2;
-  for (int j = tid; j < n1; j += THREADS) s[j] = v1[(size_t)p * cap1 + j];
-  for (int j = tid; j < n2; j += THREADS) s[n1 + j] = v2[(size_t)p * cap2 + j];
-  __syncthreads();
+  const T* row1 = v1 + (size_t)p * cap1;
+  const T* row2 = v2 + (size_t)p * cap2;
 
   int acc[NOUT];
 #pragma unroll
   for (int r = 0; r < NOUT; ++r) acc[r] = 0;
-  for (int q = tid; q < n; q += THREADS) {
-    const T z = s[q];
-    int le_a = 0, lt_a = 0, le_b = 0, lt_b = 0;
-    for (int j = 0; j < n1; ++j) {
-      const T v = s[j];
-      le_a += v <= z;
-      lt_a += v < z;
+  int nan_all = 0, nan1 = 0;
+  K x[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = (r << 5) | lane;
+    K key = ~K(0);  // padding sorts last
+    if (i < n) {
+      const bool g1 = i < n1;
+      const T v = g1 ? row1[i] : row2[i - n1];
+      if (MILLI) add_moments(acc, (int)v, g1);
+      const uint32_t vk = sort_key(v);
+      nan_all += vk == NAN_KEY;
+      nan1 += g1 && vk == NAN_KEY;
+      key = ((K)vk << 1) | (K)g1;
     }
-    for (int j = n1; j < n; ++j) {
-      const T v = s[j];
-      le_b += v <= z;
-      lt_b += v < z;
+    x[r] = key;
+  }
+  // a row whose values fill at most half the registers sorts that half:
+  // the rest is padding, already last (about half the rows at counts of
+  // 30-100 a group)
+  constexpr int H = E > 1 ? E / 2 : 1;
+  if (E > 1 && n <= 32 * H)
+    warp_sort<H>(x, lane);
+  else
+    warp_sort<E>(x, lane);
+  nan_all = warp_sum(nan_all);
+  nan1 = warp_sum(nan1);
+  const int m = n - nan_all;  // real values: sorted indices [0, m)
+
+  // ballots a register: the run ends (the next element has another value
+  // key; NaN and padding keys differ from every real one) and group 1
+  unsigned endm[E], labm[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    K next = __shfl_down_sync(0xffffffffu, x[r], 1);
+    const K wrap = __shfl_sync(0xffffffffu, x[r + 1 < E ? r + 1 : r], 0);
+    if (lane == 31) next = r + 1 < E ? wrap : ~K(0);
+    const bool real = ((r << 5) | lane) < m;
+    endm[r] = __ballot_sync(0xffffffffu, real && (x[r] >> 1) != (next >> 1));
+    labm[r] = __ballot_sync(0xffffffffu, real && (x[r] & 1));
+  }
+  // over the registers before r: the last run end and the group-1 count;
+  // after r: the first run end
+  int last_end[E], ca[E], first_end[E];
+  {
+    int last = -1, cnt = 0;
+#pragma unroll
+    for (int r = 0; r < E; ++r) {
+      last_end[r] = last;
+      ca[r] = cnt;
+      if (endm[r]) last = (r << 5) + 31 - __clz(endm[r]);
+      cnt += __popc(labm[r]);
     }
+    int first = 32 * E;
+#pragma unroll
+    for (int r = E - 1; r >= 0; --r) {
+      first_end[r] = first;
+      if (endm[r]) first = (r << 5) + __ffs(endm[r]) - 1;
+    }
+  }
+  const unsigned lt_mask = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int i = (r << 5) | lane;
+    if (i < m) {
+      const unsigned below = endm[r] & lt_mask;
+      const unsigned from = endm[r] & ~lt_mask;
+      const int s = (below ? (r << 5) + 31 - __clz(below) : last_end[r]) + 1;
+      const int e = from ? (r << 5) + __ffs(from) - 1 : first_end[r];
+      const int t = e - s + 1;  // le - lt
+      if (x[r] & 1) acc[1] += s + e + 2;  // lt + le + 1
+      acc[2] += t * t - 1;
+      if (e == i) {
+        const int le_a = ca[r] + __popc(labm[r] & (lt_mask | (1u << lane)));
+        const int le_b = e + 1 - le_a;
+        acc[0] = max(acc[0], abs(le_a * n2r - le_b * n1r));
+      }
+    }
+  }
+  acc[0] = warp_max(acc[0]);
+  constexpr int nrows = MILLI ? 9 : 3;
+#pragma unroll
+  for (int r = 1; r < nrows; ++r) acc[r] = warp_sum(acc[r]);
+  if (lane == 0) {
+    acc[1] += nan1;     // a NaN of group 1: lt + le + 1 = 1
+    acc[2] -= nan_all;  // every NaN: t = 0
+#pragma unroll
+    for (int r = 0; r < nrows; ++r) out[(size_t)r * p_total + p] = acc[r];
+  }
+}
+
+template <typename T, bool MILLI>
+__global__ void __launch_bounds__(BLOCK_THREADS)
+    battery_block(const T* __restrict__ v1, const int32_t* __restrict__ c1,
+                  int cap1, const T* __restrict__ v2,
+                  const int32_t* __restrict__ c2, int cap2, int p_total,
+                  int seg, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [2 seg]: group 1's keys sorted in [0, seg), group 2's in [seg, 2 seg)
+  uint32_t* keys = reinterpret_cast<uint32_t*>(smem_raw);
+  __shared__ int red[BLOCK_WARPS][NOUT];
+
+  const int p = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int n1r = c1[p];
+  const int n2r = c2[p];
+  const int n1 = min(max(n1r, 0), cap1);
+  const int n2 = min(max(n2r, 0), cap2);
+  const T* row1 = v1 + (size_t)p * cap1;
+  const T* row2 = v2 + (size_t)p * cap2;
+
+  int acc[NOUT];
+#pragma unroll
+  for (int r = 0; r < NOUT; ++r) acc[r] = 0;
+  for (int j = tid; j < seg; j += BLOCK_THREADS) {
+    uint32_t k1 = NAN_KEY, k2 = NAN_KEY;  // padding sorts last
+    if (j < n1) {
+      k1 = sort_key(row1[j]);
+      if (MILLI) add_moments(acc, (int)row1[j], true);
+    }
+    if (j < n2) {
+      k2 = sort_key(row2[j]);
+      if (MILLI) add_moments(acc, (int)row2[j], false);
+    }
+    keys[j] = k1;
+    keys[seg + j] = k2;
+  }
+  __syncthreads();
+  block_sort(keys, 2 * seg, seg);
+
+  // every valid value of either group, from the sorted groups (their
+  // first n1 and n2 keys, NaNs last)
+  const uint32_t* ka = keys;
+  const uint32_t* kb = keys + seg;
+  for (int q = tid; q < n1 + n2; q += BLOCK_THREADS) {
+    const bool g1 = q < n1;
+    const uint32_t z = g1 ? ka[q] : kb[q - n1];
+    if (z == NAN_KEY) {
+      acc[1] += g1;
+      acc[2] -= 1;
+      continue;
+    }
+    const int le_a = count_below<true>(ka, seg, z);
+    const int lt_a = count_below<false>(ka, seg, z);
+    const int le_b = count_below<true>(kb, seg, z);
+    const int lt_b = count_below<false>(kb, seg, z);
     acc[0] = max(acc[0], abs(le_a * n2r - le_b * n1r));
     const int cle = le_a + le_b;
     const int clt = lt_a + lt_b;
-    if (q < n1) acc[1] += clt + cle + 1;
+    if (g1) acc[1] += clt + cle + 1;
     const int t = cle - clt;
     acc[2] += t * t - 1;
-  }
-  if (MILLI) {
-    for (int j = tid; j < n; j += THREADS) {
-      const int x = (int)s[j];
-      const int sq = x * x;
-      // acc is indexed by constants only so it stays in registers
-      if (j < n1) {
-        acc[3] += x;
-        acc[4] += sq >> 15;
-        acc[5] += sq & 0x7fff;
-      } else {
-        acc[6] += x;
-        acc[7] += sq >> 15;
-        acc[8] += sq & 0x7fff;
-      }
-    }
   }
 
   const int lane = tid & 31;
@@ -122,20 +287,52 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   if (tid < nrows) {
     int v = red[0][tid];
-    for (int wi = 1; wi < NWARPS; ++wi)
+    for (int wi = 1; wi < BLOCK_WARPS; ++wi)
       v = tid == 0 ? max(v, red[wi][tid]) : v + red[wi][tid];
     out[(size_t)tid * p_total + p] = v;
   }
+}
+
+template <typename T, bool MILLI, int E>
+int launch_warp(const void* v1, const void* c1, int cap1, const void* v2,
+                const void* c2, int cap2, int p_total, void* out,
+                cudaStream_t stream) {
+  const int blocks = (p_total + WARP_ROWS - 1) / WARP_ROWS;
+  battery_warp<T, MILLI, E><<<blocks, WARP_ROWS * 32, 0, stream>>>(
+      (const T*)v1, (const int32_t*)c1, cap1, (const T*)v2,
+      (const int32_t*)c2, cap2, p_total, (int32_t*)out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, bool MILLI>
 int launch(const void* v1, const void* c1, int cap1, const void* v2,
            const void* c2, int cap2, int p_total, void* out,
            cudaStream_t stream) {
-  const size_t smem = (size_t)(cap1 + cap2) * sizeof(T);
-  battery_kernel<T, MILLI><<<p_total, THREADS, smem, stream>>>(
+  const int pool = cap1 + cap2;
+  if (pool <= 32)
+    return launch_warp<T, MILLI, 1>(v1, c1, cap1, v2, c2, cap2, p_total, out,
+                                    stream);
+  if (pool <= 64)
+    return launch_warp<T, MILLI, 2>(v1, c1, cap1, v2, c2, cap2, p_total, out,
+                                    stream);
+  if (pool <= 128)
+    return launch_warp<T, MILLI, 4>(v1, c1, cap1, v2, c2, cap2, p_total, out,
+                                    stream);
+  if (pool <= WARP_MAX_POOL)
+    return launch_warp<T, MILLI, 8>(v1, c1, cap1, v2, c2, cap2, p_total, out,
+                                    stream);
+  int seg = 1;
+  while (seg < cap1 || seg < cap2) seg <<= 1;
+  const size_t smem = (size_t)2 * seg * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        battery_block<T, MILLI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  battery_block<T, MILLI><<<p_total, BLOCK_THREADS, smem, stream>>>(
       (const T*)v1, (const int32_t*)c1, cap1, (const T*)v2,
-      (const int32_t*)c2, cap2, p_total, (int32_t*)out);
+      (const int32_t*)c2, cap2, p_total, seg, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -59,21 +59,46 @@ __host__ __device__ __forceinline__ uint32_t bits(Key k, uint32_t n) {
   return y0 ^ y1;
 }
 
+// x % d for a divisor d >= 1 fixed per row, without a division: Granlund
+// and Montgomery's multiply-high (Division by invariant integers using
+// multiplication, 1994, fig. 4.1), exact for every uint32 x.  A hardware
+// `%` by a runtime divisor is a ~20-instruction sequence; the draws take
+// three a drawn index.
+struct Divisor {
+  uint32_t d, m;
+  int sh1, sh2;
+
+  __host__ __device__ __forceinline__ explicit Divisor(uint32_t dv) : d(dv) {
+    int l = 0;  // ceil(log2 d)
+    while (l < 32 && (1ull << l) < dv) ++l;
+    m = (uint32_t)((((1ull << l) - dv) << 32) / dv + 1);
+    sh1 = l < 1 ? l : 1;
+    sh2 = l > 0 ? l - 1 : 0;
+  }
+
+  __host__ __device__ __forceinline__ uint32_t mod(uint32_t x) const {
+    const uint32_t t = (uint32_t)(((uint64_t)m * x) >> 32);
+    const uint32_t q = (t + ((x - t) >> sh1)) >> sh2;
+    return x - q * d;
+  }
+};
+
 // randint(key, shape, 0, span) for one element: (kh, kl) = split(key)
 struct Randint {
   Key hi, lo;
-  uint32_t span, mult;
+  Divisor span;
+  uint32_t mult;
 
-  __host__ __device__ __forceinline__ Randint(Key key, uint32_t maxval) {
+  __host__ __device__ __forceinline__ Randint(Key key, uint32_t maxval)
+      : span(maxval) {
     hi = fold_in(key, 0u);
     lo = fold_in(key, 1u);
-    span = maxval;
-    const uint32_t m = 65536u % span;
-    mult = (m * m) % span;
+    const uint32_t m = 65536u % maxval;
+    mult = (m * m) % maxval;
   }
 
   __host__ __device__ __forceinline__ uint32_t operator()(uint32_t n) const {
-    return ((bits(hi, n) % span) * mult + bits(lo, n) % span) % span;
+    return span.mod(span.mod(bits(hi, n)) * mult + span.mod(bits(lo, n)));
   }
 };
 

@@ -10,8 +10,13 @@ seeded inputs in both, at the main path's shapes: K1 ``banded_sw`` and K2
 ``walk`` at B 256, M 1024, W 128 (reads are their reference window with 5 %
 substitutions; the walk's time is that of the packed codes, so a checkout
 whose walk writes unpacked codes is timed with ``pack_codes2`` after it);
-K3 ``battery`` on a 16,384 x 128 int16 tile, counts 30..100; K6
-``capped_ks`` on 976 x 512 int16 pools, counts 400..512, cov 200, R 100.
+K3 ``battery`` on a 16,384 x 128 int16 tile, counts 30..100,
+``battery_f32`` on the same shape in f32 (rank rows only) and
+``battery_deep`` on a 512 x 1,024 int16 tile at 645 + 645; K6
+``capped_ks`` on an input like the capped detect's: 976 x 512 int16 pools,
+cov 200, R 100, eight distinct values a group and row (the smoke data's
+eight reads a strand, each copied 64 times), counts 400..512 in about
+96 % of the rows (capped) and 100..200 in the others (not capped).
 
 Two yardsticks, each the median of 3 samples after a warm-up: single
 launches (one call between two CUDA events, so the host's launch overhead
@@ -32,8 +37,13 @@ import numpy as np
 
 B, M, W = 256, 1024, 128
 K3_P, K3_CAP = 16384, 128
+K3_DEEP_P, K3_DEEP_CAP = 512, 1024
 K6_P, K6_CAP = 976, 512
 K6_KW = dict(cov=200, repeats=100, quantile_idx=25, seed=0)
+K6_LEVELS = 8         # distinct values a group and row
+K6_CAPPED = 0.96      # share of capped rows
+KERNELS = ("banded_sw", "walk", "battery", "battery_f32", "battery_deep",
+           "capped_ks")
 
 
 def _inputs():
@@ -46,12 +56,24 @@ def _inputs():
           rng.integers(30, 101, K3_P).astype(np.int32),
           (rng.integers(-40, 41, (K3_P, K3_CAP)) * 25).astype(np.int16),
           rng.integers(30, 101, K3_P).astype(np.int32)]
-    k6 = [(rng.integers(-30, 31, (K6_P, K6_CAP)) * 25).astype(np.int16),
-          rng.integers(400, K6_CAP + 1, K6_P).astype(np.int32),
-          (rng.integers(-30, 31, (K6_P, K6_CAP)) * 25).astype(np.int16),
-          rng.integers(400, K6_CAP + 1, K6_P).astype(np.int32),
-          np.arange(K6_P, dtype=np.int32)]
-    return [read, ref, np.full(B, M, np.int32)], k3, k6
+    k3_f32 = [k3[0].astype(np.float32) / np.float32(1000), k3[1],
+              k3[2].astype(np.float32) / np.float32(1000), k3[3]]
+    k3_deep = [(rng.integers(-8, 9, (K3_DEEP_P, K3_DEEP_CAP)) * 125
+                ).astype(np.int16), np.full(K3_DEEP_P, 645, np.int32),
+               (rng.integers(-8, 9, (K3_DEEP_P, K3_DEEP_CAP)) * 125
+                ).astype(np.int16), np.full(K3_DEEP_P, 645, np.int32)]
+    k6 = []
+    capped = rng.random(K6_P) < K6_CAPPED
+    for _ in range(2):
+        levels = rng.integers(-400, 401, (K6_P, K6_LEVELS)) * 5
+        pick = rng.integers(0, K6_LEVELS, (K6_P, K6_CAP))
+        counts = np.where(capped,
+                          rng.integers(400, K6_CAP + 1, K6_P),
+                          rng.integers(100, K6_KW["cov"] + 1, K6_P))
+        k6 += [np.take_along_axis(levels, pick, 1).astype(np.int16),
+               counts.astype(np.int32)]
+    k6.append(np.arange(K6_P, dtype=np.int32))
+    return ([read, ref, np.full(B, M, np.int32)], k3, k3_f32, k3_deep, k6)
 
 
 def _time_ms(torch, fn, n):
@@ -85,8 +107,8 @@ def worker(root):
     from nanomod_tpu_torch.resquiggle.banded_kernel import banded_sw_cuda
     from nanomod_tpu_torch.stats import kernels
     dev = torch.device("cuda", 0)
-    dp, k3, k6 = ([torch.from_numpy(x).to(dev) for x in group]
-                  for group in _inputs())
+    dp, k3, k3_f32, k3_deep, k6 = ([torch.from_numpy(x).to(dev)
+                                    for x in group] for group in _inputs())
     tb, best, bi, bk = banded_sw_cuda(*dp)
     if hasattr(banded, "walk_packed_cuda"):
         def walk():
@@ -98,10 +120,14 @@ def worker(root):
         "banded_sw": lambda: banded_sw_cuda(*dp),
         "walk": walk,
         "battery": lambda: kernels.battery_rows_cuda(*k3, milli=True),
+        "battery_f32": lambda: kernels.battery_rows_cuda(*k3_f32,
+                                                         milli=False),
+        "battery_deep": lambda: kernels.battery_rows_cuda(*k3_deep,
+                                                          milli=True),
         "capped_ks": lambda: kernels.capped_ks_d_cuda(*k6, **K6_KW),
     }
-    outs = {"banded_sw": [tb, best, bi, bk], "walk": [walk()],
-            "battery": [fns["battery"]()], "capped_ks": [fns["capped_ks"]()]}
+    outs = {name: [fn()] for name, fn in fns.items()}
+    outs["banded_sw"] = [tb, best, bi, bk]
     res = {"root": root}
     for name, fn in fns.items():
         res[name] = {"single_ms": _time_ms(torch, fn, 1),
@@ -137,7 +163,7 @@ def main(argv=None):
             raise RuntimeError(f"{root} failed:\n{out.stdout}\n{out.stderr}")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    for name in ("banded_sw", "walk", "battery", "capped_ks"):
+    for name in KERNELS:
         digests = {r[name]["digest"] for r in runs}
         if len(digests) != 1:
             raise AssertionError(f"{name}: outputs differ between the "

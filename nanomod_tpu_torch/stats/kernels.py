@@ -203,9 +203,22 @@ def battery_components_packed(values1, counts1, values2, counts2):
 # (kernel K6, csrc/capped_ks.cu).
 # ---------------------------------------------------------------------------
 
-# shared memory a block of K6 may use on Hopper (227 KB): the two
-# subsamples (min(cov, width) floats a group) and the R numerators
-SMEM_LIMIT = 232448
+# shared memory a block of K6 may use on Hopper: the card's 227 KB less 1 KB
+# for the kernel's static buffers (csrc/capped_ks.cu SMEM_CAP)
+SMEM_LIMIT = 232448 - 1024
+
+
+def capped_ks_smem(width1, width2, cov, repeats, warps=1):
+    """Bytes of shared memory K6 takes a block of ``warps`` warps
+    (csrc/capped_ks.cu launch): a group of width w has at most w sources,
+    w + 1 where it can be capped (w >= cov); the sort buffer (8 bytes a
+    source, a power of two) doubles as the warps' histograms (4 bytes a
+    source a warp), then the sources' runs, pre_a, pre_b and the R
+    numerators."""
+    n_max = sum(w + (w >= cov) for w in (width1, width2))
+    sort_max = 1 << max(n_max - 1, 0).bit_length()
+    return (max(8 * sort_max, 4 * warps * n_max) + 12 * n_max
+            + 4 * repeats)
 
 
 def capped_draws_plain(counts, row_index, *, cov, repeats, seed, group):
@@ -316,7 +329,7 @@ def capped_ks_d_cuda(values1, counts1, values2, counts2, row_index=None, *,
         raise ValueError(f"row_index must be int32, got {row_index.dtype}")
     if repeats * cov >= 2 ** 31:
         raise ValueError("repeats * cov must stay below 2^31")
-    smem = 4 * (min(cov, v1.shape[1]) + min(cov, v2.shape[1]) + repeats)
+    smem = capped_ks_smem(v1.shape[1], v2.shape[1], cov, repeats)
     if smem > SMEM_LIMIT:
         raise ValueError(f"K6 needs {smem} bytes of shared memory a block "
                          f"(cov {cov}, widths {v1.shape[1]} and "

@@ -17,6 +17,7 @@ from nanomod_tpu.stats import battery as jbat
 from nanomod_tpu.stats import kernels as jk
 from nanomod_tpu_torch import config as tcfg
 from nanomod_tpu_torch.kernels import build as kbuild
+from nanomod_tpu_torch.kernels import hardcases
 from nanomod_tpu_torch.stats import battery as tbat
 from nanomod_tpu_torch.stats import kernels as tk
 
@@ -56,6 +57,36 @@ def test_milli_rows_match_jax(name):
     got = tk.battery_components_packed_milli(*_t(v1, n1, v2, n2)).numpy()
     assert got.shape == want.shape == (9, len(n1))
     np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32))
+
+
+@pytest.mark.parametrize("case", hardcases.K3_CASES)
+def test_hard_case_rows_match_jax(case):
+    """The tiles on which a kernel that sorts could go wrong (NaN inside
+    the valid prefix, -0.0 against +0.0, one tie run, one value a group,
+    counts 0 and 1, 645 + 645, either side of K3's warp/block switch): the
+    plain version's rows equal the JAX package's."""
+    v1, n1, v2, n2 = hardcases.k3_tile(case, 6 if case == "deep_645" else 24,
+                                       seed=len(case))
+    args = _t(v1, n1, v2, n2)
+    if case in hardcases.F32_CASES:
+        want = np.asarray(jk.battery_components_packed(v1, n1, v2, n2))
+        got = tk.battery_components_packed(*args).numpy()
+        np.testing.assert_allclose(got[3:], want[3:], rtol=1e-6, atol=1e-6)
+        nrows = 3
+    else:
+        want = np.asarray(jk.battery_components_packed_milli(v1, n1, v2, n2))
+        got = tk.battery_components_packed_milli(*args).numpy()
+        nrows = 9
+    np.testing.assert_array_equal(want[:nrows].view(np.int32),
+                                  got[:nrows].view(np.int32))
+    assert got.shape[1] == len(n1)
+    if nrows == 9:   # and the native host battery, where both groups hold
+        comp = tbat.milli_components(got)
+        host = tbat.host_components(v1, n1, v2, n2)
+        both = (n1 > 0) & (n2 > 0)
+        for key in host:
+            np.testing.assert_array_equal(comp[key][both], host[key][both],
+                                          err_msg=key)
 
 
 @pytest.mark.parametrize("mixed", [False, True])

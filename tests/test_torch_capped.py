@@ -13,6 +13,7 @@ import torch
 
 from nanomod_tpu.stats.kernels import capped_ks_d as jax_capped_ks_d
 from nanomod_tpu_torch.kernels import build as kbuild
+from nanomod_tpu_torch.kernels import hardcases
 from nanomod_tpu_torch.stats import kernels
 
 
@@ -77,6 +78,25 @@ def test_plain_equals_jax(name):
     assert (want > 0).any()
 
 
+@pytest.mark.parametrize("case", hardcases.K6_CASES)
+def test_hard_case_plain_equals_jax(case):
+    """The tiles on which a kernel that ranks the row could go wrong (NaN
+    inside the valid prefix, -0.0 against +0.0, one tie run, every value
+    distinct, counts 0, 1, cov and cov + 1, one group under cov and the
+    other over it): the plain version equals the JAX package's."""
+    cov = 16
+    v1, n1, v2, n2 = hardcases.k6_tile(case, 12, 40, cov, seed=len(case))
+    rows = (np.arange(12) + 77).astype(np.int32)
+    kw = dict(cov=cov, repeats=8, quantile_idx=2, seed=5)
+    want = np.asarray(jax_capped_ks_d(jnp.asarray(v1), jnp.asarray(n1),
+                                      jnp.asarray(v2), jnp.asarray(n2),
+                                      jnp.asarray(rows), **kw))
+    got = kernels.capped_ks_d_plain(
+        *[torch.from_numpy(x) for x in (v1, n1, v2, n2, rows)], **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert ((n1 > cov) | (n2 > cov)).any()
+
+
 def test_row_index_keys_the_draws_not_the_tile():
     """A slice of the rows with its absolute row index gives the slice of
     the whole result (so tiling does not change the draws); the default
@@ -124,6 +144,20 @@ def test_bad_arguments_raise(bad):
     _, args, kw = _run_both("i16")
     with pytest.raises(ValueError):
         kernels.capped_ks_d(*args, **{**kw, **bad})
+
+
+@pytest.mark.parametrize("widths,cov,warps,want", [
+    ((512, 512), 200, 1, 16384 + 12 * 1026 + 400),   # the capped detect's
+    ((512, 512), 200, 8, 4 * 8 * 1026 + 12 * 1026 + 400),
+    ((100, 40), 200, 8, 4 * 8 * 140 + 12 * 140 + 400),  # never capped
+])
+def test_k6_shared_memory_layout(widths, cov, warps, want):
+    """K6's shared memory as its launch lays it out: a group of width w has
+    w sources, w + 1 where it can be capped; the sort buffer (8 bytes a
+    source, a power of two) doubles as the histograms (4 bytes a source a
+    warp).  Two 8,192-wide pools do not fit the card."""
+    assert kernels.capped_ks_smem(*widths, cov, 100, warps) == want
+    assert kernels.capped_ks_smem(8192, 8192, 100, 100) > kernels.SMEM_LIMIT
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

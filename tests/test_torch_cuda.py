@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from nanomod_tpu_torch.kernels import build as kbuild
+from nanomod_tpu_torch.kernels import hardcases
 from nanomod_tpu_torch.resquiggle import banded
 from nanomod_tpu_torch.stats import battery, kernels
 
@@ -125,7 +126,8 @@ def test_k1_rejects_bad_band(dev):
 @pytest.mark.parametrize("c1,c2,lo,hi,dtype", [
     (32, 16, 0, 32, "i16"), (128, 128, 30, 100, "i16"),
     (1024, 1024, 645, 645, "i16"), (64, 32, 0, 32, "f32"),
-    (64, 32, 0, 32, "mixed")])
+    (64, 32, 0, 32, "mixed"), (16, 8, 0, 16, "i16"),
+    (128, 128, 0, 128, "f32"), (512, 300, 0, 300, "f32")])
 def test_k3_matches_plain(dev, c1, c2, lo, hi, dtype):
     rng = np.random.default_rng(c1 + c2 + lo)
     p = 300
@@ -140,6 +142,28 @@ def test_k3_matches_plain(dev, c1, c2, lo, hi, dtype):
     t = [torch.from_numpy(x).to(dev) for x in (v1, n1, v2, n2)]
     milli = dtype == "i16"
     got = kernels.battery_rows(*t, milli=milli)
+    assert torch.equal(got, kernels.battery_rows_plain(*t, milli=milli))
+    if milli:
+        host = battery.host_components(v1, n1, v2, n2)
+        comp = battery.milli_components(got.cpu().numpy())
+        both = (n1 > 0) & (n2 > 0)
+        for key in host:
+            np.testing.assert_array_equal(comp[key][both], host[key][both])
+
+
+@pytest.mark.parametrize("case", hardcases.K3_CASES)
+def test_k3_hard_cases_match_plain(dev, case):
+    """NaN inside the valid prefix, -0.0 against +0.0, one tie run, one
+    value a group, counts 0 and 1, 645 + 645, and full rows either side of
+    the warp/block switch: K3 array-equal to its plain version (and to the
+    host battery on int16 rows with both groups non-empty)."""
+    v1, n1, v2, n2 = hardcases.k3_tile(case, 64 if case == "deep_645"
+                                       else 300, seed=len(case))
+    t = [torch.from_numpy(x).to(dev) for x in (v1, n1, v2, n2)]
+    milli = case not in hardcases.F32_CASES
+    before = kbuild.launch_counts()["battery"]
+    got = kernels.battery_rows(*t, milli=milli)
+    assert kbuild.launch_counts()["battery"] == before + 1
     assert torch.equal(got, kernels.battery_rows_plain(*t, milli=milli))
     if milli:
         host = battery.host_components(v1, n1, v2, n2)
@@ -209,6 +233,20 @@ def test_k6_above_645_matches_plain(dev, cov, reps):
     rows = (np.arange(p) + 11).astype(np.int32)
     t = [torch.from_numpy(x).to(dev) for x in (v1, n1, v2, n2, rows)]
     kw = dict(cov=cov, repeats=reps, quantile_idx=1, seed=5)
+    assert torch.equal(kernels.capped_ks_d(*t, **kw),
+                       kernels.capped_ks_d_plain(*t, **kw))
+
+
+@pytest.mark.parametrize("case", hardcases.K6_CASES)
+def test_k6_hard_cases_match_plain(dev, case):
+    """NaN inside the valid prefix, -0.0 against +0.0, one tie run, every
+    value distinct, counts 0, 1, cov and cov + 1, one group under cov and
+    the other over: K6 array-equal to its plain version."""
+    cov = 40
+    v1, n1, v2, n2 = hardcases.k6_tile(case, 200, 128, cov, seed=len(case))
+    rows = (np.arange(200) + 31).astype(np.int32)
+    t = [torch.from_numpy(x).to(dev) for x in (v1, n1, v2, n2, rows)]
+    kw = dict(cov=cov, repeats=12, quantile_idx=3, seed=2)
     assert torch.equal(kernels.capped_ks_d(*t, **kw),
                        kernels.capped_ks_d_plain(*t, **kw))
 
