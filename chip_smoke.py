@@ -69,6 +69,32 @@ Phase 6  K6 at the main path's own shapes: the capped detect again, in
          inside the run; K6 against its plain version on those tensors,
          whole, both timed.  The kernels line gives K6's times at that
          input; its bound is printed beside the draws' share of it.
+Phase 7  the multi-device and multi-process paths.  (a) K7, the neighbor
+         stencil, against its plain version on the card: P = 1,048,576
+         positions in 4 shards of a mesh of cuda:0 four times, k = 2 and 5,
+         two joins (positions start again inside a shard), capped rows
+         (cov 200) beside uncapped ones, padding rows, the mesh's edges;
+         array-equal.  (b) K9, the event accumulation, against its plain
+         version and against index_add_: a genome of 4,641,652 positions
+         (E. coli K-12's length), 2^22 events, 10 % not ok; counts equal,
+         sums within rtol 1e-5 and atol 1e-5.  (c) sharded_join_battery on
+         the 4-shard mesh against run_battery + combine_neighbor_pvalues
+         at phase 2's P = 1,048,576, without and with a cap of 60 (phase
+         2's counts are 30-100): every float64 column bit-equal.  (d) the
+         in-process sharded detect (run_detect with the 4-shard mesh) on
+         phase 3's groups, stouffer, fisher, ks and ``--coverages 200-200
+         --mstd 1``: the tables byte-equal to the single-device ones
+         (phases 3 and 5); then distributed_detect_step on the mesh (data
+         2) at the genome and events of (b), its counts against K9's plain
+         version and its D against the plain pooled components.  The
+         counts are set to 0 before each and read after: K7 and K9 must
+         have launched.  (e) two processes on the card through
+         ``torch.distributed.run --standalone --nproc_per_node 2``: ``cli
+         detect --device cuda`` (union, and sharded with --coverages
+         200-200 --mstd 1) byte-equal to phases 3 and 5, K3 (and K6)
+         launched in every rank's metrics file; ``cli Annotate`` on fresh
+         copies of the raw smoke groups: every corrected FAST5 byte-equal
+         to phase 3's, each rank reporting the merged ok count.
 
 Kernel times are medians of 3 samples after one warm-up, each sample 10
 back-to-back calls between two CUDA events, divided by 10 (the ``ms`` of
@@ -174,6 +200,20 @@ MILLI_MOMENT_OPS = 4
 # xor, 12 key-injection adds and the xor of the two output words; two
 # blocks a drawn index
 THREEFRY_OPS = 73
+# phase 7: K7's shards and windows, the cap of its capped rows; K9's genome
+# (E. coli K-12 MG1655, 4,641,652 bp) and events; the cap of (c)
+MESH_SHARDS = 4
+STENCIL_KS = (2, 5)
+STENCIL_COV = 200
+GENOME_LEN = 4_641_652
+EVENTS = 1 << 22
+SHARDED_COV = 60
+# K7's integer operations a written entry (selection, halo pick, the
+# distance and validity tests); K9's f32 operations an event kept (three
+# adds and a multiply)
+K7_OPS = 12
+K9_OPS = 4
+TORCHRUN_TIMEOUT = 600
 
 
 def log(*a):
@@ -769,6 +809,7 @@ def phase3(torch, dev, tmp):
         "detect_positions_per_s": metrics["detect"]["positions"]
         / metrics["detect"]["seconds"],
         "launches": launches,
+        "reads_ok": {g: metrics[f"annotate_{g}"]["reads_ok"] for g in groups},
         "stages": {k: {s: v["seconds"] for s, v in m["stages"].items()}
                    for k, m in metrics.items()},
     }
@@ -1107,6 +1148,410 @@ def phase6(torch, dev, tmp, groups):
     return res
 
 
+def stencil_shards(torch, rng, dev, p, nsh, cov):
+    """(num, cap, n1c, n2c, pos, valid) of ``nsh`` shards of P positions on
+    ``dev``: two joins (positions start again inside shard 1), counts 1 to
+    2 cov (capped rows beside uncapped ones), 1,000 padding rows."""
+    num = rng.integers(0, 1 << 20, p)
+    cap = rng.integers(0, 1 << 20, p)
+    n1c = rng.integers(1, 2 * cov + 1, p)
+    n2c = rng.integers(1, 2 * cov + 1, p)
+    n_valid = p - 1000
+    cut = p // nsh + p // (3 * nsh)
+    pos = np.full(p, -(2 ** 30), np.int64)
+    pos[:cut] = np.cumsum(rng.integers(1, 3, cut))
+    pos[cut:n_valid] = 17 + np.cumsum(rng.integers(1, 3, n_valid - cut))
+    valid = np.arange(p) < n_valid
+    t = [torch.from_numpy(a.astype(np.int32)).to(dev)
+         for a in (num, cap, n1c, n2c, pos)] + [torch.from_numpy(valid).to(dev)]
+    length = p // nsh
+    return [tuple(x[s * length:(s + 1) * length] for x in t)
+            for s in range(nsh)]
+
+
+def k7_work(length, k):
+    """K7's bytes (five int32 vectors and one byte vector of [L] read, two
+    [5, k] halos, the [2k+1, L] stencil of 13 bytes an entry written) and
+    integer operations."""
+    entries = (2 * k + 1) * length
+    return dict(bytes_moved=21 * length + 40 * k + 13 * entries,
+                int_ops=K7_OPS * entries)
+
+
+def k9_work(torch, pos, ok, genome_len):
+    """K9's bytes (9 an event read, 12 a position written) and f32
+    operations (an event kept: three adds, a multiply; a negative
+    position counts from the end of [genome_len + 1], as in the
+    reference's scatter)."""
+    wrapped = torch.where(pos < 0, pos.to(torch.int64) + genome_len + 1, pos)
+    kept = int((ok & (wrapped >= 0) & (wrapped < genome_len)).sum())
+    return dict(bytes_moved=9 * pos.numel() + 12 * genome_len,
+                f32_ops=K9_OPS * kept)
+
+
+def device_ms(torch, fn, key, n=100):
+    """Device time of the kernels whose name holds ``key``, a call of fn:
+    n calls under torch.profiler after a warm-up (None when the trace
+    holds none; the trace's top device entries are then logged).  It
+    leaves out the host's launch overhead that time_ms sees when the
+    kernel is shorter than its wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    us = sum(_device_us(e) for e in avgs if key in e.key)
+    if not us:
+        log(f"device_ms: no {key!r} in the trace; top device entries",
+            json.dumps([[e.key[:80], _device_us(e)] for e in sorted(
+                avgs, key=_device_us, reverse=True)[:5]]))
+        return None
+    return us / 1e3 / n
+
+
+def phase7_kernels(torch, dev):
+    """(a) K7 and (b) K9 against their plain versions on the card, timed
+    beside their bounds (and K9 beside index_add_)."""
+    from nanomod_tpu_torch.parallel import mesh, sharded
+    rng = np.random.default_rng(7)
+    res = {}
+    shards = stencil_shards(torch, rng, dev, BATTERY_P, MESH_SHARDS,
+                            STENCIL_COV)
+    length = BATTERY_P // MESH_SHARDS
+    errs = []
+    for k in STENCIL_KS:
+        for cov in (0, STENCIL_COV):
+            hal = sharded.halos(shards, k, cov)
+            for sh, (left, right) in zip(shards, hal):
+                got = sharded.stencil_cuda(*sh, left, right, k=k, cov=cov)
+                want = sharded.stencil_plain(*sh, left, right, k=k, cov=cov)
+                for a, b in zip(got, want):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"K7 differs from plain at k = "
+                                             f"{k}, cov = {cov}")
+                errs.append((got[0], want[0]))
+                ok = got[3]
+            if not (ok.any() and not ok.all()):
+                raise AssertionError("K7's ok rows must be mixed")
+    k = STENCIL_KS[0]
+    sh = shards[1]
+    left, right = sharded.halos(shards, k, STENCIL_COV)[1]
+    k7 = functools.partial(sharded.stencil_cuda, *sh, left, right, k=k,
+                           cov=STENCIL_COV)
+    plain = functools.partial(sharded.stencil_plain, *sh, left, right, k=k,
+                              cov=STENCIL_COV)
+    res["k7"] = {
+        "P": BATTERY_P, "shards": MESH_SHARDS, "L": length, "k": k,
+        "cov": STENCIL_COV, "max_abs_err": max_abs_err(torch, errs),
+        "ms": time_ms(torch, k7), "single_ms": time_ms(torch, k7, n=1),
+        "plain_ms": time_ms(torch, plain),
+        "device_ms": device_ms(torch, k7, "stencil_kernel"),
+        "step_ms": time_ms(torch, lambda: sharded.sharded_stencil(
+            shards, k, STENCIL_COV)),
+    }
+    res["k7"]["bound_ms"], res["k7"]["bound_by"] = bound(**k7_work(length, k))
+
+    pos = torch.from_numpy(rng.integers(0, GENOME_LEN, EVENTS)
+                           .astype(np.int32)).to(dev)
+    val = torch.from_numpy(rng.normal(0, 1, EVENTS).astype(np.float32)).to(dev)
+    ok = torch.from_numpy(rng.random(EVENTS) >= 0.1).to(dev)
+    got = mesh.accumulate_cuda(pos, val, ok, GENOME_LEN)
+    want = mesh.accumulate_plain(pos, val, ok, GENOME_LEN)
+    check_accumulate(torch, got, want, "K9 against its plain version")
+    idx = pos[ok].to(torch.int64)
+    v = val[ok]
+    src = torch.stack([torch.ones_like(v), v, v * v], dim=1)
+    lib = torch.zeros((GENOME_LEN, 3), device=dev).index_add_(0, idx, src)
+    check_accumulate(torch, got, lib.T, "K9 against index_add_")
+    k9 = functools.partial(mesh.accumulate_cuda, pos, val, ok, GENOME_LEN)
+    res["k9"] = {
+        "genome_len": GENOME_LEN, "events": EVENTS,
+        "kept": int(idx.numel()),
+        "max_abs_err": max_abs_err(torch, zip(got, want)),
+        "ms": time_ms(torch, k9), "single_ms": time_ms(torch, k9, n=1),
+        "device_ms": device_ms(torch, k9, "accumulate_kernel"),
+        "plain_ms": time_ms(torch, lambda: mesh.accumulate_plain(
+            pos, val, ok, GENOME_LEN)),
+        "library_ms": time_ms(torch, lambda: torch.zeros(
+            (GENOME_LEN, 3), device=dev).index_add_(0, idx, src)),
+    }
+    res["k9"]["bound_ms"], res["k9"]["bound_by"] = bound(
+        **k9_work(torch, pos, ok, GENOME_LEN))
+    log("phase7 kernels", json.dumps(res))
+    return res, (pos, val, ok)
+
+
+def check_accumulate(torch, got, want, what):
+    """Counts equal; sums within the reference's own tolerance (the
+    atomics add in no fixed order)."""
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"{what}: counts differ")
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def mesh_devices(torch):
+    """The MESH_SHARDS devices of phase 7's meshes: the cards in turn, so
+    that one card stands for all four (cuda:0 four times) and four cards
+    are four."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", s % n) for s in range(MESH_SHARDS)]
+
+
+def phase7_sharded_battery(torch, dev):
+    """(c) sharded_join_battery on the 4-shard mesh against run_battery +
+    combine_neighbor_pvalues at phase 2's inputs: bit-equal."""
+    from nanomod_tpu_torch.config import StatConfig
+    from nanomod_tpu_torch.parallel import mesh, sharded
+    from nanomod_tpu_torch.stats import battery
+    from nanomod_tpu_torch.stats.combine import combine_neighbor_pvalues
+    rng = np.random.default_rng(1)            # phase 2's inputs
+    p, c = BATTERY_P, BATTERY_CAP
+    v1 = (rng.integers(-40, 41, (p, c)) * 25).astype(np.int16)
+    v2 = (rng.integers(-40, 41, (p, c)) * 25).astype(np.int16)
+    n1 = np.maximum(rng.integers(30, 101, p), 1).astype(np.int32)
+    n2 = np.maximum(rng.integers(30, 101, p), 1).astype(np.int32)
+    pools1 = v1.astype(np.float32) / np.float32(1000)
+    pools2 = v2.astype(np.float32) / np.float32(1000)
+    positions = np.cumsum(rng.integers(1, 3, p)).astype(np.int64)
+    m = mesh.make_mesh(MESH_SHARDS, devices=mesh_devices(torch))
+    res = {}
+    for cov in (0, SHARDED_COV):
+        cfg = StatConfig(coverages=(cov, cov))
+        t0 = time.perf_counter()
+        got = sharded.sharded_join_battery(m, pools1, n1, pools2, n2,
+                                           positions, cfg=cfg, want_mstd=True)
+        torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = battery.run_battery(pools1, n1, pools2, n2, cfg=cfg,
+                                   device=dev, tile_positions=BATTERY_TILE,
+                                   want_mstd=True)
+        want.stcomb, want.pcomb = combine_neighbor_pvalues(
+            np.zeros(p, np.int64), positions, want.pks, cfg)
+        single_s = time.perf_counter() - t0
+        for key in ("stu", "pu", "stt", "pt", "stks", "pks", "stcomb",
+                    "pcomb", "mstd"):
+            if not np.array_equal(getattr(got, key), getattr(want, key),
+                                  equal_nan=True):
+                raise AssertionError(f"sharded battery {key} differs from "
+                                     f"the single device's at cov {cov}")
+        res[f"cov{cov}"] = {"sharded_s": sharded_s, "single_s": single_s}
+    log("phase7 sharded battery", json.dumps(res))
+    return res
+
+
+def phase7_main_paths(torch, dev, tmp, groups, events):
+    """(d) the in-process sharded detect and distributed_detect_step, each
+    with the launch counts set to 0 just before and read just after."""
+    from nanomod_tpu_torch.config import (DetectConfig, RankConfig,
+                                          StatConfig, replace)
+    from nanomod_tpu_torch.detect import run_detect
+    from nanomod_tpu_torch.kernels import build as kbuild
+    from nanomod_tpu_torch.parallel import mesh
+    from nanomod_tpu_torch.stats import kernels
+    base = DetectConfig(wrk_base1=groups["ctrl"], wrk_base2=groups["case"],
+                        min_lr=0, rank=RankConfig(window=10))
+    capped = replace(base, mstd=True, stats=StatConfig(
+        coverages=(DETECT_COV, DETECT_COV), downsampling=100))
+    runs = {
+        "stouffer": (base, os.path.join(tmp, "out")),
+        "fisher": (replace(base, **{"stats.test_method": "fisher"}), None),
+        "ks": (replace(base, **{"stats.test_method": "ks"}), None),
+        "capped": (capped, os.path.join(tmp, "capped")),
+    }
+    # the single-device tables that phases 3 and 5 did not write
+    for name, (cfg, want_dir) in runs.items():
+        if want_dir is None:
+            want_dir = os.path.join(tmp, f"single_{name}")
+            run_detect(replace(cfg, out_folder=want_dir), device=dev)
+            runs[name] = (cfg, want_dir)
+    # n_devices shards each join over mesh.DEVICES, the test hook that
+    # lets one card stand for several
+    mesh.DEVICES = mesh_devices(torch)
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for name, (cfg, _) in runs.items():
+            run_detect(replace(cfg, n_devices=MESH_SHARDS,
+                               out_folder=os.path.join(tmp, f"mesh_{name}")),
+                       device=dev)
+        torch.cuda.synchronize()
+    finally:
+        mesh.DEVICES = None
+    detect_s = time.perf_counter() - t0
+    detect_launches = kbuild.launch_counts()
+    for name, (cfg, want_dir) in runs.items():
+        files = ["mod_sign_test.txt"] + (["mod_meanstd.cvs"] if cfg.mstd
+                                         else [])
+        for f in files:
+            a = _read_bytes(os.path.join(tmp, f"mesh_{name}", f))
+            if a != _read_bytes(os.path.join(want_dir, f)) \
+                    or len(a.splitlines()) < 1000:
+                raise AssertionError(f"sharded detect ({name}): {f} differs "
+                                     f"from the single-device one")
+    for kern in ("battery", "capped_ks", "stencil"):
+        if detect_launches[kern] <= 0:
+            raise AssertionError(f"the sharded detect did not launch "
+                                 f"{kern}: {detect_launches}")
+
+    pos, val, ok = events
+    reads = [x.reshape(4096, -1).cpu().numpy() for x in (pos, val, ok)]
+    prng = np.random.default_rng(8)
+    pp, nn = 65536, 64
+    z = np.where(prng.random((pp, nn)) < 0.8,
+                 np.round(prng.normal(0, 1, (pp, nn)), 2), np.inf)
+    z = np.sort(z, axis=1).astype(np.float32)
+    lab = (prng.random((pp, nn)) < 0.5).astype(np.float32)
+    lab[:, :2] = (1.0, 0.0)
+    lab[~np.isfinite(z)] = 0.0
+    n1 = (lab * np.isfinite(z)).sum(1).astype(np.float32)
+    n2 = ((1 - lab) * np.isfinite(z)).sum(1).astype(np.float32)
+    m2 = mesh.make_mesh(MESH_SHARDS, data=2, devices=mesh_devices(torch))
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    step = mesh.distributed_detect_step(m2, GENOME_LEN, *reads, z, lab, n1,
+                                        n2)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    step_launches = kbuild.launch_counts()
+    if step_launches["accumulate"] <= 0 or step_launches["battery"] <= 0:
+        raise AssertionError(f"distributed_detect_step did not launch K9 "
+                             f"and K3: {step_launches}")
+    check_accumulate(torch, step[:3], mesh.accumulate_plain(
+        pos, val, ok, GENOME_LEN), "distributed_detect_step")
+    want = kernels.pooled_rank_components_plain(
+        *(torch.from_numpy(x).to(dev) for x in (z, lab, n1, n2)))
+    for a, b in zip(step[3:], want):
+        if not torch.equal(a, b):
+            raise AssertionError("distributed_detect_step's pooled "
+                                 "components differ from plain")
+    res = {"detect_runs": list(runs), "detect_s": detect_s,
+           "detect_launches": detect_launches, "step_s": step_s,
+           "step_launches": step_launches,
+           "step_shapes": {"reads": list(reads[0].shape), "pooled": [pp, nn]}}
+    log("phase7 main paths", json.dumps(res))
+    return res
+
+
+def _torchrun_all(jobs):
+    """Run each {name: args} as ``torch.distributed.run --standalone
+    --nproc_per_node 2 -m nanomod_tpu_torch.cli ARGS``, all at once;
+    returns {name: stdout}.  A launch that fails or outlives the timeout
+    raises, and every process is stopped."""
+    env = _env()
+    procs = {}
+    try:
+        for name, args in jobs.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "2", "-m", "nanomod_tpu_torch.cli"]
+                + args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        outs = {name: p.communicate(timeout=TORCHRUN_TIMEOUT)[0]
+                for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise RuntimeError(f"two-process {name} failed ({p.returncode}):"
+                               f"\n{outs[name][-4000:]}")
+    return outs
+
+
+def phase7_two_processes(tmp, groups, p3):
+    """(e) two ranks on the card: detect (union and sharded) and Annotate
+    through torch.distributed.run."""
+    data = os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data")
+    detect = ["detect", "--wrkBase1", groups["ctrl"], "--wrkBase2",
+              groups["case"], "--min_lr", "0", "--device", "cuda"]
+    capped = ["--coverages", f"{DETECT_COV}-{DETECT_COV}", "--downsampling",
+              "100", "--mstd", "1", "--merge_mode", "sharded"]
+    mfile = {name: os.path.join(tmp, f"mp_{name}.json")
+             for name in ("union", "sharded", "ann_ctrl", "ann_case")}
+    jobs = {
+        "union": detect + ["--outFolder", os.path.join(tmp, "mp_union"),
+                           "--metricsFile", mfile["union"]],
+        "sharded": detect + capped + [
+            "--outFolder", os.path.join(tmp, "mp_sharded"),
+            "--metricsFile", mfile["sharded"]],
+    }
+    t0 = time.perf_counter()
+    outs = _torchrun_all(jobs)
+    detect_s = time.perf_counter() - t0
+    checks = {"union": ("out", ["mod_sign_test.txt"], ("battery",)),
+              "sharded": ("capped", ["mod_sign_test.txt", "mod_meanstd.cvs"],
+                          ("battery", "capped_ks"))}
+    launches = {}
+    for name, (want_dir, files, kerns) in checks.items():
+        for f in files:
+            a = _read_bytes(os.path.join(tmp, f"mp_{name}", f))
+            if a != _read_bytes(os.path.join(tmp, want_dir, f)):
+                raise AssertionError(f"two-process {name} detect: {f} "
+                                     f"differs from the single process's")
+        for rank in range(2):
+            with open(mfile[name].replace(".json", f".rank{rank}.json")) as f:
+                got = json.load(f)["kernel_launches"]
+            launches[f"{name}_rank{rank}"] = got
+            if min(got[k] for k in kerns) <= 0:
+                raise AssertionError(f"two-process {name}, rank {rank}: "
+                                     f"{kerns} not all launched: {got}")
+        if "Rank 1:" not in outs[name]:
+            raise AssertionError(f"two-process {name} printed no rank 1")
+
+    fresh = {}
+    for group in ("ctrl", "case"):
+        dst = os.path.join(tmp, f"mp_raw_{group}")
+        os.makedirs(dst)
+        for name in sorted(os.listdir(os.path.join(data, group))):
+            stem = name[: -len(".fast5")]
+            for k in range(COPIES):
+                shutil.copyfile(os.path.join(data, group, name),
+                                os.path.join(dst, f"{stem}_{k:02d}.fast5"))
+        fresh[group] = dst
+    t0 = time.perf_counter()
+    outs = _torchrun_all({
+        f"ann_{g}": ["Annotate", "--wrkBase1", folder, "--Ref",
+                     os.path.join(data, "ref.fa"), "--device", "cuda",
+                     "--metricsFile", mfile[f"ann_{g}"]]
+        for g, folder in fresh.items()})
+    annotate_s = time.perf_counter() - t0
+    reads_ok = {}
+    for g, folder in fresh.items():
+        names = sorted(os.listdir(folder))
+        n = len(names)
+        for rank in range(2):
+            line = f"Total f5={n} (rank {rank}/2: {n // 2})"
+            if line not in outs[f"ann_{g}"]:
+                raise AssertionError(f"two-process Annotate {g}: no line "
+                                     f"{line!r}")
+            with open(mfile[f"ann_{g}"].replace(".json",
+                                                f".rank{rank}.json")) as f:
+                m = json.load(f)
+            reads_ok[f"{g}_rank{rank}"] = m["reads_ok"]
+            launches[f"ann_{g}_rank{rank}"] = m["kernel_launches"]
+            if m["reads_ok"] != p3["reads_ok"][g]:
+                raise AssertionError(f"two-process Annotate {g}, rank "
+                                     f"{rank}: merged ok {m['reads_ok']}, "
+                                     f"one process {p3['reads_ok'][g]}")
+        for name in names:
+            if (_read_bytes(os.path.join(folder, name))
+                    != _read_bytes(os.path.join(groups[g], name))):
+                raise AssertionError(f"two-process Annotate {g}: {name} "
+                                     f"differs from phase 3's")
+    res = {"detect_s": detect_s, "annotate_s": annotate_s,
+           "reads_ok": reads_ok, "launches": launches}
+    log("phase7 two processes", json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "nanomod_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository",
@@ -1144,6 +1589,10 @@ def main() -> int:
         p4 = phase4(torch, dev)
         p5 = phase5(torch, dev, tmp, groups)
         p6 = phase6(torch, dev, tmp, groups)
+        p7, events = phase7_kernels(torch, dev)
+        phase7_sharded_battery(torch, dev)
+        p7_main = phase7_main_paths(torch, dev, tmp, groups, events)
+        phase7_two_processes(tmp, groups, p3)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if "jax" in sys.modules:
@@ -1156,7 +1605,8 @@ def main() -> int:
     main_dp = p1[MAIN_PATH_BUCKET]
     dp_runs = [r for m, r in p1.items() if m != "extra"] \
         + list(p1["extra"].values())
-    # no single PyTorch call computes any of these functions
+    # no single PyTorch call computes any of these functions but K9's
+    # (index_add_)
     kernels = [
         {"name": "banded_sw", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/banded_sw.cu",
@@ -1194,6 +1644,24 @@ def main() -> int:
          "plain_ms": p6["k6_plain_ms"],
          "bound_ms": p6["k6_bound_ms"], "bound_by": p6["k6_bound_by"],
          "library_ms": None},
+        {"name": "stencil", "route": "cuda",
+         "source": "nanomod_tpu_torch/csrc/stencil.cu",
+         "replaces": "nanomod_tpu/parallel/sharded.py:77",
+         "launches": p7_main["detect_launches"]["stencil"],
+         "max_abs_err": p7["k7"]["max_abs_err"],
+         "ms": p7["k7"]["ms"], "single_ms": p7["k7"]["single_ms"],
+         "plain_ms": p7["k7"]["plain_ms"],
+         "bound_ms": p7["k7"]["bound_ms"], "bound_by": p7["k7"]["bound_by"],
+         "library_ms": None},
+        {"name": "accumulate", "route": "cuda",
+         "source": "nanomod_tpu_torch/csrc/accumulate.cu",
+         "replaces": "nanomod_tpu/parallel/mesh.py:70",
+         "launches": p7_main["step_launches"]["accumulate"],
+         "max_abs_err": p7["k9"]["max_abs_err"],
+         "ms": p7["k9"]["ms"], "single_ms": p7["k9"]["single_ms"],
+         "plain_ms": p7["k9"]["plain_ms"],
+         "bound_ms": p7["k9"]["bound_ms"], "bound_by": p7["k9"]["bound_by"],
+         "library_ms": p7["k9"]["library_ms"]},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -11,6 +11,14 @@ nanomod_tpu.cli, with the same flags plus ``--device`` (default ``cuda``)::
 kernels' launch counts as JSON.  Plots are not ported: detect accepts
 ``--plotType`` and draws nothing, and the harness writes every ``.output``
 / ``.done`` file but prints a line instead of drawing ``hist_<FileID>.png``.
+
+Several processes: launch through torchrun, e.g. ``python -m
+torch.distributed.run --standalone --nproc_per_node 2 -m
+nanomod_tpu_torch.cli detect ...``.  The CLI then initialises a gloo
+process group from torchrun's environment (parallel/dist.py); each rank
+ingests (or annotates) its file shard, ``--device cuda`` means
+cuda:{LOCAL_RANK % device_count}, and ``--metricsFile m.json`` becomes one
+``m.rank<r>.json`` a rank.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import argparse
 import glob
 import os
 
+from nanomod_tpu_torch.parallel import dist
 from nanomod_tpu_torch.config import (OUTPUT_DEBUG, OUTPUT_ERROR, OUTPUT_INFO,
                                       OUTPUT_WARNING, AnnotateConfig, DetectConfig,
                                       RankConfig, SimulateConfig, StatConfig,
@@ -218,7 +227,8 @@ def build_parser():
     p.add_argument("--profileDir", default="",
                    help="device trace dir (not ported: raises if set)")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="0/1 = single device (the only mode ported)")
+                   help="shard each join's positions over this many CUDA "
+                        "devices (0/1 = one device)")
     p.add_argument("--tile_positions", type=int, default=16384,
                    help="positions per device stats tile")
     p.add_argument("--pool_capacity", type=int, default=0,
@@ -226,8 +236,9 @@ def build_parser():
                         "subsample beyond the cap; 0 = keep everything)")
     p.add_argument("--merge_mode", choices=("union", "sharded"),
                    default="union",
-                   help="multi-host pool merge (only 'union', i.e. one "
-                        "process, is ported)")
+                   help="multi-process pool merge: 'union' (every rank "
+                        "tests the merged pools) or 'sharded' (each rank "
+                        "tests its own coordinate range)")
     _device_arg(p)
     p.set_defaults(func=cmd_detect)
 
@@ -282,7 +293,8 @@ def build_parser():
     p.add_argument("--metricsFile", default="",
                    help="write per-stage timing/throughput JSON here")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="0/1 = single device (the only mode ported)")
+                   help="deal the DP batches over this many CUDA devices "
+                        "(at most the process's; 0/1 = one device)")
     _device_arg(p)
     p.set_defaults(func=cmd_annotate)
     return parser
@@ -290,7 +302,12 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.func(args)
+    dist.initialize()
+    try:
+        args.device = dist.rank_device(args.device)
+        args.func(args)
+    finally:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,11 +1,15 @@
-"""End-to-end two-group modification detection on one device.
+"""End-to-end two-group modification detection.
 
-Port of nanomod_tpu/detect.py for a single process: ingest corrected FAST5
-events of both groups (native reader) into dense position pools, filter
-coverage, run the test battery per (chrom, strand) on the device (kernel
-K3), combine neighbor p-values, save the reference-format results table and
-rank sites.  Multi-device and multi-host runs (``n_devices > 1``,
-``merge_mode="sharded"``), device traces (``profile_dir`` /
+Port of nanomod_tpu/detect.py: ingest corrected FAST5 events of both groups
+(native reader) into dense position pools, filter coverage, run the test
+battery per (chrom, strand) on the device (kernel K3; K6 past the coverage
+cap), combine neighbor p-values, save the reference-format results table
+and rank sites.  ``n_devices > 1`` shards each join's positions over a
+device mesh (parallel/sharded.py, kernel K7 for the neighbor stencil);
+under several processes (torch.distributed, parallel/dist.py) each rank
+ingests its file shard and the pools merge across ranks, or with
+``merge_mode="sharded"`` each rank tests its own coordinate range
+(parallel/shardmerge.py).  Device traces (``profile_dir`` /
 NANOMOD_PROFILE_DIR) and plots are not ported and raise.
 """
 
@@ -105,18 +109,29 @@ def ingest_group(folder: str, cfg: DetectConfig,
     return pools
 
 
-def detect_from_pools(pools1: Dict, pools2: Dict, cfg: DetectConfig,
-                      device="cuda",
-                      backend: Optional[str] = None
-                      ) -> Tuple[SignTable, np.ndarray]:
+def detect_from_pools(
+    pools1: Dict, pools2: Dict, cfg: DetectConfig, device="cuda",
+    backend: Optional[str] = None,
+    row_offsets: Optional[Dict[Tuple[str, str], int]] = None,
+) -> Tuple[SignTable, np.ndarray]:
     """Coverage-filter, test (on ``device``), combine and rank two groups
     of pools.  Returns (table, order): table rows in (chrom, strand, pos)
     order, ``order`` the table indices by rank.  ``backend`` is passed to
-    run_battery ("device" unless set)."""
-    if cfg.n_devices and cfg.n_devices > 1:
-        raise NotImplementedError("n_devices > 1: the sharded battery is "
-                                  "not ported")
+    run_battery ("device" unless set).
+
+    ``row_offsets`` maps (chrom, strand) to the global join-row index of
+    this call's first joined row for that key; the position-sharded merge
+    (parallel/shardmerge.py) passes it so the capped KS draws what the
+    whole join draws.  None: these pools are the whole join.
+
+    ``cfg.n_devices > 1`` shards each join's positions over a mesh of that
+    many devices (parallel/mesh.make_mesh, which raises when there are
+    fewer; parallel/sharded.py)."""
     device = resolve_device(device)
+    mesh = None
+    if cfg.n_devices and cfg.n_devices > 1:
+        from nanomod_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(cfg.n_devices)
     with stage("coverage_filter", unit="positions") as s:
         pools1 = {k: v.filter_min_coverage(cfg.min_coverage) for k, v in pools1.items()}
         pools2 = {k: v.filter_min_coverage(cfg.min_coverage) for k, v in pools2.items()}
@@ -133,12 +148,22 @@ def detect_from_pools(pools1: Dict, pools2: Dict, cfg: DetectConfig,
             bad = g1.base[i1] != g2.base[i2]
             if bad.any() and cfg.out_level <= OUTPUT_INFO:
                 print(f"Warning: {bad.sum()} base mismatches between groups at {key}")
-            res = run_battery(
-                g1.values, g1.counts[i1], g2.values, g2.counts[i2],
-                strand=key[1], cfg=cfg.stats,
-                tile_positions=cfg.tile_positions, want_mstd=cfg.mstd,
-                backend=backend, idx1=i1, idx2=i2, device=device,
-            )
+            off = row_offsets.get(key, 0) if row_offsets else 0
+            if mesh is not None:
+                from nanomod_tpu_torch.parallel.sharded import (
+                    sharded_join_battery)
+                res = sharded_join_battery(
+                    mesh, g1.values[i1], g1.counts[i1],
+                    g2.values[i2], g2.counts[i2], positions=common,
+                    strand=key[1], cfg=cfg.stats, want_mstd=cfg.mstd,
+                    row_offset=off)
+            else:
+                res = run_battery(
+                    g1.values, g1.counts[i1], g2.values, g2.counts[i2],
+                    strand=key[1], cfg=cfg.stats,
+                    tile_positions=cfg.tile_positions, want_mstd=cfg.mstd,
+                    row_offset=off, backend=backend, idx1=i1, idx2=i2,
+                    device=device)
             keys.append(key)
             parts.append((key, common, g2.base[i2], g1.counts[i1], g2.counts[i2], res))
             s.add(len(common))
@@ -171,6 +196,10 @@ def detect_from_pools(pools1: Dict, pools2: Dict, cfg: DetectConfig,
     if cfg.stats.test_method != "ks":
         if cfg.stats.neighbor_pvalues == 0:
             res.stcomb, res.pcomb = res.stks.copy(), res.pks.copy()
+        elif mesh is not None:
+            # combined per join on the mesh (join boundaries are invalid
+            # neighbors in both paths, so per join == global)
+            res.stcomb, res.pcomb = cat("stcomb"), cat("pcomb")
         else:
             with stage("combine_pvalues", unit="positions") as s:
                 res.stcomb, res.pcomb = combine_neighbor_pvalues(
@@ -245,23 +274,22 @@ def save_sign_test(table: SignTable, cfg: DetectConfig) -> str:
 def run_detect(cfg: DetectConfig, device="cuda",
                backend: Optional[str] = None):
     """Full detect pipeline on ``device``: ingest both groups, test,
-    combine, save, rank.  Per-stage counters go to the global Observer
+    combine, save, rank.  Under several processes (parallel/dist.py) each
+    rank ingests its file shard and the pools merge across ranks, or, with
+    ``merge_mode="sharded"``, each rank tests its own coordinate range
+    (parallel/shardmerge.py).  Per-stage counters go to the global Observer
     (reset per run); cfg.metrics_file also records the kernels' launch
-    counts.  Returns (table, order, sites)."""
+    counts (one file a rank under several processes, metrics_path).
+    Returns (table, order, sites)."""
     import time
 
     import nanomod_tpu_torch
 
-    from nanomod_tpu_torch.metrics import write_metrics
+    from nanomod_tpu_torch.metrics import metrics_path, write_metrics
+    from nanomod_tpu_torch.parallel import dist
 
     if cfg.merge_mode not in ("union", "sharded"):
         raise ValueError(f"bad merge_mode {cfg.merge_mode!r}")
-    if cfg.merge_mode == "sharded":
-        raise NotImplementedError("merge_mode='sharded' (multi-host) is not "
-                                  "ported")
-    if cfg.n_devices and cfg.n_devices > 1:
-        raise NotImplementedError("n_devices > 1: the sharded battery is "
-                                  "not ported")
     if cfg.profile_dir or os.environ.get("NANOMOD_PROFILE_DIR"):
         raise NotImplementedError("device traces (profile_dir / "
                                   "NANOMOD_PROFILE_DIR) are not ported")
@@ -271,19 +299,32 @@ def run_detect(cfg: DetectConfig, device="cuda",
     nanomod_tpu_torch.tune_malloc()
     observer().reset()
     start = time.time()
-    pools1 = ingest_group(cfg.wrk_base1, cfg)
-    pools2 = ingest_group(cfg.wrk_base2, cfg)
-    table, order = detect_from_pools(pools1, pools2, cfg, device=device,
-                                     backend=backend)
-    if cfg.save_test:
-        with stage("save", unit="positions") as s:
-            save_sign_test(table, cfg)
-            s.add(len(table))
-    sites = top_sites(table, order, cfg.stats, cfg.rank, top_n=cfg.rank.top_n)
+    rank, world = dist.process_info()
+    if world > 1 and cfg.merge_mode == "sharded":
+        from nanomod_tpu_torch.parallel.shardmerge import (
+            distributed_detect_sharded)
+        table, order, sites = distributed_detect_sharded(
+            cfg, device=device, backend=backend)
+    else:
+        if world > 1:
+            table, order = dist.distributed_ingest_detect(
+                cfg, device=device, backend=backend)
+        else:
+            pools1 = ingest_group(cfg.wrk_base1, cfg)
+            pools2 = ingest_group(cfg.wrk_base2, cfg)
+            table, order = detect_from_pools(pools1, pools2, cfg,
+                                             device=device, backend=backend)
+        if cfg.save_test:
+            with stage("save", unit="positions") as s:
+                save_sign_test(table, cfg)
+                s.add(len(table))
+        sites = top_sites(table, order, cfg.stats, cfg.rank,
+                          top_n=cfg.rank.top_n)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     report(cfg.out_level)
     if cfg.metrics_file:
-        write_metrics(cfg.metrics_file, device, positions=len(table),
-                      seconds=time.time() - start)
+        write_metrics(metrics_path(cfg.metrics_file, rank, world), device,
+                      positions=len(table), seconds=time.time() - start,
+                      rank=rank, world_size=world)
     return table, order, sites

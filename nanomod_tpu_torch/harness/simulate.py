@@ -1,6 +1,7 @@
 # Copied from nanomod_tpu/harness/simulate.py; differs in the imports, the
-# native reader in load_group_reads, the jax-free shard_list, and the
-# ``device`` / ``backend`` arguments passed through to detect_from_pools.
+# native reader in load_group_reads, shard_list from the port's
+# parallel/dist.py (torch.distributed), and the ``device`` / ``backend``
+# arguments passed through to detect_from_pools.
 """Simulation / evaluation harness.
 
 Rebuilds the reference's three benchmarking subcommands
@@ -9,9 +10,9 @@ case/control reads, rerun detection, and record the rank of a known
 modified site.  Where the reference fans the experiment grid out over an
 SGE cluster with qsub/qstat polling (mySimulate.py:344-457), the rebuilt
 detection core is fast enough to sweep the grid in-process; grid points
-and sweep sizes are sharded round-robin by an explicit process id and
-count (``shard_list``).  Every trial is a whole ``detect_from_pools`` on
-``device`` (kernel K3 on a card).
+and sweep sizes are sharded round-robin by process id and count, by
+default the process group's (``shard_list``).  Every trial is a whole
+``detect_from_pools`` on ``device`` (kernel K3 on a card).
 
 Rank semantics follow getTopRank (ref mySimulate.py:287-328): sites are
 walked in significance order with min-distance dedup and a completeness
@@ -37,16 +38,8 @@ from nanomod_tpu_torch.config import DetectConfig, SimulateConfig, replace
 from nanomod_tpu_torch.io.fast5 import iter_fast5_files
 from nanomod_tpu_torch.detect import detect_from_pools
 from nanomod_tpu_torch.native import load_native, require
+from nanomod_tpu_torch.parallel.dist import shard_list
 from nanomod_tpu_torch.rank.ranking import top_sites
-
-
-def shard_list(items: Sequence, process_id: Optional[int] = None,
-               process_count: Optional[int] = None) -> List:
-    """Round-robin shard of a work list (grid points, sweep sizes) for
-    process ``process_id`` of ``process_count`` (default: the only one)."""
-    pid = 0 if process_id is None else process_id
-    pcount = 1 if process_count is None else process_count
-    return [x for i, x in enumerate(items) if i % pcount == pid]
 
 
 def load_group_reads(folder: str, recursive: bool = True):
@@ -506,8 +499,8 @@ def run_simulate_grid(cfg: SimulateConfig,
 
     The reference fans this out as qsub jobs and polls qstat; here the
     grid points are sharded round-robin across processes (shard_list, by
-    the explicit process_id/process_count; one process by default) and
-    each process sweeps its shard in-process.  Workers write the same per-point
+    process_id/process_count, the process group's by default) and each
+    process sweeps its shard in-process.  Workers write the same per-point
     `.output`/`.done` files, so the merge (merge_grid_outputs) is the
     reference's file-level concatenation (ref :454-464).
 

@@ -16,7 +16,12 @@ K3 ``battery`` on a 16,384 x 128 int16 tile, counts 30..100,
 ``capped_ks`` on an input like the capped detect's: 976 x 512 int16 pools,
 cov 200, R 100, eight distinct values a group and row (the smoke data's
 eight reads a strand, each copied 64 times), counts 400..512 in about
-96 % of the rows (capped) and 100..200 in the others (not capped).
+96 % of the rows (capped) and 100..200 in the others (not capped); K7
+``stencil`` on one shard of 262,144 positions, k 2, cov 200, its halos
+from the neighbour shards of a 4-shard split of 1,048,576 positions; K9
+``accumulate`` at a genome of 4,641,652 positions and 2^22 events, 10 %
+not ok (its digest covers the counts, since the f32 sums depend on the
+order of its atomics).  A checkout without a kernel skips it.
 
 Two yardsticks, each the median of 3 samples after a warm-up: single
 launches (one call between two CUDA events, so the host's launch overhead
@@ -43,7 +48,9 @@ K6_KW = dict(cov=200, repeats=100, quantile_idx=25, seed=0)
 K6_LEVELS = 8         # distinct values a group and row
 K6_CAPPED = 0.96      # share of capped rows
 KERNELS = ("banded_sw", "walk", "battery", "battery_f32", "battery_deep",
-           "capped_ks")
+           "capped_ks", "stencil", "accumulate")
+K7_P, K7_SHARDS, K7_K, K7_COV = 1 << 20, 4, 2, 200
+K9_G, K9_EVENTS = 4_641_652, 1 << 22
 
 
 def _inputs():
@@ -73,7 +80,16 @@ def _inputs():
         k6 += [np.take_along_axis(levels, pick, 1).astype(np.int16),
                counts.astype(np.int32)]
     k6.append(np.arange(K6_P, dtype=np.int32))
-    return ([read, ref, np.full(B, M, np.int32)], k3, k3_f32, k3_deep, k6)
+    k7 = [rng.integers(0, 1 << 20, K7_P), rng.integers(0, 1 << 20, K7_P),
+          rng.integers(1, 2 * K7_COV + 1, K7_P),
+          rng.integers(1, 2 * K7_COV + 1, K7_P),
+          np.cumsum(rng.integers(1, 3, K7_P))]
+    k7 = [x.astype(np.int32) for x in k7] + [np.arange(K7_P) < K7_P - 1000]
+    k9 = [rng.integers(0, K9_G, K9_EVENTS).astype(np.int32),
+          rng.normal(0, 1, K9_EVENTS).astype(np.float32),
+          rng.random(K9_EVENTS) >= 0.1]
+    return ([read, ref, np.full(B, M, np.int32)], k3, k3_f32, k3_deep, k6,
+            k7, k9)
 
 
 def _time_ms(torch, fn, n):
@@ -107,8 +123,8 @@ def worker(root):
     from nanomod_tpu_torch.resquiggle.banded_kernel import banded_sw_cuda
     from nanomod_tpu_torch.stats import kernels
     dev = torch.device("cuda", 0)
-    dp, k3, k3_f32, k3_deep, k6 = ([torch.from_numpy(x).to(dev)
-                                    for x in group] for group in _inputs())
+    dp, k3, k3_f32, k3_deep, k6, k7, k9 = (
+        [torch.from_numpy(x).to(dev) for x in group] for group in _inputs())
     tb, best, bi, bk = banded_sw_cuda(*dp)
     if hasattr(banded, "walk_packed_cuda"):
         def walk():
@@ -126,8 +142,25 @@ def worker(root):
                                                           milli=True),
         "capped_ks": lambda: kernels.capped_ks_d_cuda(*k6, **K6_KW),
     }
-    outs = {name: [fn()] for name, fn in fns.items()}
+    try:
+        from nanomod_tpu_torch.parallel import mesh, sharded
+    except ImportError:            # a checkout from before K7 and K9
+        mesh = sharded = None
+    if sharded is not None:
+        length = K7_P // K7_SHARDS
+        shards = [tuple(x[s * length:(s + 1) * length] for x in k7)
+                  for s in range(K7_SHARDS)]
+        left, right = sharded.halos(shards, K7_K, K7_COV)[1]
+        fns["stencil"] = lambda: sharded.stencil_cuda(
+            *shards[1], left, right, k=K7_K, cov=K7_COV)
+        fns["accumulate"] = lambda: mesh.accumulate_cuda(*k9, K9_G)
+    outs = {}
+    for name, fn in fns.items():
+        out = fn()
+        outs[name] = list(out) if isinstance(out, tuple) else [out]
     outs["banded_sw"] = [tb, best, bi, bk]
+    if "accumulate" in outs:
+        outs["accumulate"] = outs["accumulate"][:1]     # the counts
     res = {"root": root}
     for name, fn in fns.items():
         res[name] = {"single_ms": _time_ms(torch, fn, 1),
@@ -164,6 +197,9 @@ def main(argv=None):
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     for name in KERNELS:
+        if any(name not in r for r in runs):
+            print(f"{name}: not in every checkout, skipped", flush=True)
+            continue
         digests = {r[name]["digest"] for r in runs}
         if len(digests) != 1:
             raise AssertionError(f"{name}: outputs differ between the "

@@ -5,19 +5,24 @@ shared library with a plain C interface, at first use, into
 ``nanomod_tpu_torch/_build/`` (listed in .gitignore): one ``nvcc -c`` a
 source, all started at once, then one link.  No PyTorch header is
 included, so the build takes seconds, not minutes.  The library is rebuilt
-when any source is newer than it.
+when any source is newer than it, under an inter-process lock
+(``fcntl.flock`` on ``_build/kernels.lock``), so that processes starting
+at once (the ranks of one launch) run nvcc once.
 
-Each C entry point launches its kernel on the stream it is given
-(``torch.cuda.current_stream().cuda_stream``) and returns the
-``cudaGetLastError()`` code of the launch; ``check`` raises on a non-zero
-code.  Every wrapper adds one to its entry of ``LAUNCHES`` where it launches
-its kernel, and nowhere else, so a run can show that it went through the
-kernels.
+Each C entry point launches its kernel on the stream it is given and
+returns the ``cudaGetLastError()`` code of the launch.  Wrappers call it
+through ``launch``, which makes the tensors' device the current CUDA device
+for the call and passes that device's current stream (CUDA refuses a
+launch to a stream of another device than the current one, and PyTorch
+leaves cuda:0 current), then raises on a non-zero code.  Every wrapper adds
+one to its entry of ``LAUNCHES`` where it launches its kernel, and nowhere
+else, so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -30,6 +35,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libnanomod_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
+LOCK_PATH = os.path.join(BUILD_DIR, "kernels.lock")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,7 +46,8 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches made by its wrapper in this process
-LAUNCHES = {"banded_sw": 0, "walk": 0, "battery": 0, "capped_ks": 0}
+LAUNCHES = {"banded_sw": 0, "walk": 0, "battery": 0, "capped_ks": 0,
+            "stencil": 0, "accumulate": 0}
 
 _LOCK = threading.Lock()
 _LIB = {}
@@ -66,6 +73,12 @@ _SIGNATURES = {
     # counts, row_index, P, repeats * cov, seed_hi, seed_lo, group, out,
     # stream
     "nm_capped_draws": [_vp, _vp, _i, _i, _u, _u, _i, _vp, _vp],
+    # num, cap, n1c, n2c, pos, valid, left, right, L, k, cov, d, ne1, ne2,
+    # ok, stream
+    "nm_stencil": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp,
+                   _vp, _vp, _vp, _vp],
+    # pos, val, ok, n, genome_len, acc [genome_len, 4], stream
+    "nm_accumulate": [_vp, _vp, _vp, _i, _i, _vp, _vp],
 }
 
 
@@ -103,15 +116,27 @@ def _run_all(cmds):
     return done
 
 
+def _up_to_date(srcs) -> bool:
+    newest = max(os.path.getmtime(s) for s in srcs)
+    return os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest
+
+
 def build() -> str:
     """Compile csrc/*.cu into LIB_PATH unless it is up to date, one nvcc a
-    source in parallel, then link; returns the library path.  Raises
-    RuntimeError with nvcc's output on failure."""
+    source in parallel, then link, under the inter-process lock; returns
+    the library path.  Raises RuntimeError with nvcc's output on failure."""
     srcs = _sources()
-    newest = max(os.path.getmtime(s) for s in srcs)
-    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest:
+    if _up_to_date(srcs):
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(LOCK_PATH, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _up_to_date(srcs):
+            _compile(srcs)
+    return LIB_PATH
+
+
+def _compile(srcs):
     tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     cus = [s for s in srcs if s.endswith(".cu")]
@@ -137,7 +162,6 @@ def build() -> str:
         for path in objs + [tmp]:
             if os.path.exists(path):
                 os.remove(path)
-    return LIB_PATH
 
 
 def lib() -> ctypes.CDLL:
@@ -163,7 +187,14 @@ def check(rc: int, name: str):
                            f"error {rc} ({msg})")
 
 
-def stream_ptr(device) -> int:
-    """Raw handle of PyTorch's current stream on ``device``."""
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and the raw handle of
+    PyTorch's current stream on ``device``, with ``device`` the current
+    CUDA device for the call (its shared-memory attributes and launch
+    belong to that device); raises naming kernel ``name`` if the launch
+    failed."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib(), entry)(*args, stream)
+    check(rc, name)

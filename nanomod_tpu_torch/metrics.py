@@ -11,6 +11,16 @@ from nanomod_tpu_torch.utils.observe import observer
 from nanomod_tpu_torch.kernels.build import launch_counts
 
 
+def metrics_path(path: str, rank: int = 0, world_size: int = 1) -> str:
+    """The metrics file of one rank: ``path`` itself in a single process;
+    under several, ``<stem>.rank<r><ext>`` (every rank gets the same
+    command line, so each writes its own file)."""
+    if world_size <= 1:
+        return path
+    root, ext = os.path.splitext(path)
+    return f"{root}.rank{rank}{ext}"
+
+
 def write_metrics(path: str, device, **extra) -> str:
     """Write the Observer's per-stage snapshot, the kernels' launch counts
     and the device (with its name on CUDA) as JSON; ``extra`` adds keys."""

@@ -1,0 +1,325 @@
+# Port of nanomod_tpu/parallel/sharded.py: the shard_map step is a loop
+# over the mesh's shards, the ppermute halo a copy of the neighbours'
+# boundary columns, and the stencil kernel K7 (csrc/stencil.cu).
+"""Position-sharded multi-device detection.
+
+The position axis of each (chrom, strand) join is split into one
+contiguous shard a device of the ('data', 'pos') mesh (parallel/mesh.py):
+
+  * the battery components (K3) and, past the per-strand cap, the capped
+    KS (K6) run on each shard's slice: rows are independent;
+  * the only coupling between shards is the ±k neighbor p-value
+    combination (ref myDetect.py:383): each shard's k boundary columns of
+    (selected KS numerator, ne1, ne2, position, valid) are copied to its
+    neighbours' devices, and K7 assembles the [2k+1, L] stencil there;
+  * the float64 p-value transforms run on the host per shard, through the
+    same stats.battery / stats.special code as the single-device path, so
+    the sharded run is byte-identical to it.
+
+The capped KS's draws are keyed by each row's absolute index in its join
+(``row_offset + s * shard_len + i``), so they equal the single-device
+tiling's.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nanomod_tpu_torch.config import StatConfig
+from nanomod_tpu_torch.device import to_device
+from nanomod_tpu_torch.kernels import build as kbuild
+from nanomod_tpu_torch.parallel.mesh import Mesh
+from nanomod_tpu_torch.stats import battery, kernels, special
+
+_PAD_POS = -(2 ** 30)
+
+
+# ---------------------------------------------------------------------------
+# K7: the neighbor stencil of one shard
+# ---------------------------------------------------------------------------
+
+def stencil_payload(num, cap, n1c, n2c, pos, valid, cov: int):
+    """[5, n] int32 rows (selected KS numerator, ne1, ne2, position, valid)
+    of a run of columns: the capped numerator and min(n, cov) where either
+    group exceeds ``cov`` (cov > 0), the plain ones otherwise."""
+    if cov > 0:
+        need = (n1c > cov) | (n2c > cov)
+        num = torch.where(need, cap, num)
+        n1c = torch.where(need, n1c.clamp(max=cov), n1c)
+        n2c = torch.where(need, n2c.clamp(max=cov), n2c)
+    return torch.stack([num, n1c, n2c, pos, valid.to(torch.int32)])
+
+
+def stencil_plain(num, cap, n1c, n2c, pos, valid, left, right, *, k: int,
+                  cov: int):
+    """Plain PyTorch twin of K7: the [2k+1, L] stencil (d, ne1, ne2 int32,
+    ok bool) of a shard from its [L] vectors and the [5, k] halo blocks of
+    its neighbours (zeros at a mesh edge)."""
+    length = num.shape[0]
+    ext = torch.cat([left, stencil_payload(num, cap, n1c, n2c, pos, valid,
+                                           cov), right], dim=1)
+    valid = valid.to(torch.bool)
+    rows = [], [], [], []
+    for off in range(-k, k + 1):
+        si = ext[:, k + off: k + off + length]
+        if off == 0:
+            ok = valid
+        else:
+            ok = (si[4] > 0) & valid & (si[3] - pos == off)
+        for out, x in zip(rows, (si[0], si[1], si[2], ok)):
+            out.append(x)
+    return tuple(torch.stack(r) for r in rows)
+
+
+def stencil_cuda(num, cap, n1c, n2c, pos, valid, left, right, *, k: int,
+                 cov: int):
+    """Launch K7 on CUDA tensors; the same result as stencil_plain."""
+    dev = num.device
+    vecs = (num, cap, n1c, n2c, pos)
+    if dev.type != "cuda" or any(t.device != dev for t in
+                                 vecs + (valid, left, right)):
+        raise ValueError("stencil_cuda needs CUDA tensors on one device")
+    length = num.shape[0]
+    if any(t.dtype != torch.int32 or t.shape != (length,) for t in vecs):
+        raise ValueError("num, cap, n1c, n2c and pos must be [L] int32")
+    if valid.shape != (length,) or valid.dtype not in (torch.bool,
+                                                       torch.uint8):
+        raise ValueError("valid must be [L] bool")
+    for h in (left, right):
+        if h.dtype != torch.int32 or h.shape != (5, k):
+            raise ValueError(f"halo blocks must be [5, {k}] int32")
+    if (2 * k + 1) * length >= 2 ** 31 or 2 * k + 1 > 65535:
+        raise ValueError("the stencil must hold fewer than 2^31 entries "
+                         "and at most 65,535 offsets")
+    num, cap, n1c, n2c, pos, left, right = (
+        t.contiguous() for t in (num, cap, n1c, n2c, pos, left, right))
+    valid = valid.to(torch.bool).contiguous()
+    shape = (2 * k + 1, length)
+    d, ne1, ne2 = (torch.empty(shape, dtype=torch.int32, device=dev)
+                   for _ in range(3))
+    ok = torch.empty(shape, dtype=torch.bool, device=dev)
+    kbuild.launch(
+        "stencil", "nm_stencil", dev,
+        num.data_ptr(), cap.data_ptr(), n1c.data_ptr(), n2c.data_ptr(),
+        pos.data_ptr(), valid.data_ptr(), left.data_ptr(), right.data_ptr(),
+        length, k, cov, d.data_ptr(), ne1.data_ptr(), ne2.data_ptr(),
+        ok.data_ptr())
+    kbuild.LAUNCHES["stencil"] += 1
+    return d, ne1, ne2, ok
+
+
+def stencil(num, cap, n1c, n2c, pos, valid, left, right, *, k: int,
+            cov: int):
+    """The shard's stencil on the device of ``num``: the plain version for
+    CPU tensors, kernel K7 for CUDA tensors (raises if it cannot launch)."""
+    fn = stencil_plain if num.device.type == "cpu" else stencil_cuda
+    return fn(num, cap, n1c, n2c, pos, valid, left, right, k=k, cov=cov)
+
+
+def halos(shards, k: int, cov: int):
+    """The (left, right) [5, k] halo blocks of every shard: ``shards`` lists
+    each shard's (num, cap, n1c, n2c, pos, valid) [L] tensors on its
+    device, in mesh order.  The k boundary columns of each neighbour's
+    payload are copied to the shard's device; the mesh's two edges get
+    zeros (valid 0)."""
+    length = shards[0][0].shape[0]
+    if k > length:
+        raise ValueError(f"neighbor window {k} exceeds the shard length "
+                         f"{length}")
+
+    def edge(s, cols, dev):
+        if s < 0 or s >= len(shards):
+            return torch.zeros((5, k), dtype=torch.int32, device=dev)
+        return stencil_payload(*(t[cols] for t in shards[s]), cov).to(dev)
+
+    return [(edge(s - 1, slice(length - k, length), sh[0].device),
+             edge(s + 1, slice(0, k), sh[0].device))
+            for s, sh in enumerate(shards)]
+
+
+def sharded_stencil(shards, k: int, cov: int):
+    """The stencil of every shard (see halos for ``shards``), each on its
+    shard's device."""
+    return [stencil(*sh, left, right, k=k, cov=cov)
+            for sh, (left, right) in zip(shards, halos(shards, k, cov))]
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _encode_shards(pool, values, counts, cap, spans, shard_len):
+    """Each shard's [shard_len, cap] tile and [shard_len] int32 counts,
+    encoded on the threads of ``pool``, a shard a task.  The tiles are
+    those of battery._tile_slice over the whole join in one piece: int16
+    milli values when every value of the join is an exact multiple of
+    0.001 within int16 range (each shard is checked on its thread, the
+    join is the AND of the shards), else the values' own type."""
+    w = min(cap, values.shape[1])
+    if values.dtype == np.int16:
+        milli = [values[lo:hi, :w] for lo, hi in spans]
+    else:
+        milli = list(pool.map(
+            lambda sp: battery._milli_values(values[sp[0]:sp[1], :w]),
+            spans))
+        if any(m is None for m in milli):
+            milli = None
+
+    def tile(s):
+        lo, hi = spans[s]
+        src = values[lo:hi, :w] if milli is None else milli[s]
+        v = np.zeros((shard_len, cap), dtype=src.dtype)
+        v[: hi - lo, :w] = src
+        c = np.zeros(shard_len, dtype=np.int32)
+        c[: hi - lo] = np.minimum(counts[lo:hi], cap)
+        return v, np.maximum(c, 1)
+
+    return list(pool.map(tile, range(len(spans))))
+
+
+def sharded_join_battery(
+    mesh: Mesh,
+    values1: np.ndarray, counts1: np.ndarray,
+    values2: np.ndarray, counts2: np.ndarray,
+    positions: np.ndarray,
+    strand: str = "+",
+    cfg: StatConfig = StatConfig(),
+    want_mstd: bool = False,
+    combine: bool = True,
+    row_offset: int = 0,
+) -> battery.TestResult:
+    """Full battery + neighbor combination for ONE (chrom, strand) join,
+    position-sharded over ``mesh``.
+
+    Drop-in for stats.battery.run_battery inside detect.detect_from_pools,
+    plus the per-join combination, which equals the global one because the
+    ±k stencil never crosses (chrom, strand) boundaries (pos_check
+    invalidates such neighbors in both).  ``combine=True`` fills
+    res.stcomb / res.pcomb when the config calls for a combination column;
+    ``row_offset`` is the join-row index of this call's first row.
+
+    The host's work runs a shard a thread: each shard's slice is encoded
+    and copied to its device, and later finalized in float64, on a thread
+    of its own; the kernels are launched from the calling thread."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    p_total = len(counts1)
+    battery._check_i32_bounds(counts1, counts2)
+    nsh = mesh.size
+    shard_len = _round_up(max(_round_up(p_total, nsh) // nsh, 8), 8)
+    spans = [(min(s * shard_len, p_total), min((s + 1) * shard_len, p_total))
+             for s in range(nsh)]
+
+    c1 = battery._capacity_bucket(int(counts1.max(initial=1)))
+    c2 = battery._capacity_bucket(int(counts2.max(initial=1)))
+    n1 = counts1.astype(np.int32)
+    n2 = counts2.astype(np.int32)
+    cov = int(cfg.coverages[0 if strand == "+" else 1])
+    capped = cov > 0 and bool(((n1 > cov) | (n2 > cov)).any())
+    want_comb = (combine and cfg.test_method != "ks"
+                 and cfg.neighbor_pvalues > 0)
+    if want_comb and p_total and int(positions.max()) >= 2 ** 31:
+        raise ValueError("a position overflows int32")
+
+    def stencil_rows(s):
+        """The shard's positions (padding at _PAD_POS) and valid flags."""
+        lo, hi = spans[s]
+        pos = np.full(shard_len, _PAD_POS, dtype=np.int32)
+        pos[: hi - lo] = positions[lo:hi]
+        return pos, np.arange(shard_len) < hi - lo
+
+    def upload(s, t1, t2):
+        """Shard s's tiles, its draws' absolute row index within the join
+        (identical to the single-device tiling's) and its stencil rows,
+        copied to its device."""
+        dev = mesh.devices[s]
+        arrays = list(t1 + t2)
+        if capped:
+            lo = row_offset + s * shard_len
+            arrays.append(np.arange(lo, lo + shard_len, dtype=np.int32))
+        if want_comb:
+            arrays += stencil_rows(s)
+        return [to_device(a, dev) for a in arrays]
+
+    workers = max(1, min(nsh, battery._nthreads(), 8))
+    with ThreadPoolExecutor(workers) as pool:
+        tiles1 = _encode_shards(pool, values1, counts1, c1, spans, shard_len)
+        tiles2 = _encode_shards(pool, values2, counts2, c2, spans, shard_len)
+        is_milli = (tiles1[0][0].dtype == np.int16
+                    and tiles2[0][0].dtype == np.int16)
+        shards = list(pool.map(upload, range(nsh), tiles1, tiles2))
+
+        # per shard, on its device: K3, K6 past the cap, the stencil's
+        # inputs
+        packed, caps, stencil_in = [], [], []
+        for s, sh in enumerate(shards):
+            v1d, cn1d, v2d, cn2d = sh[:4]
+            if is_milli:
+                pk = kernels.battery_components_packed_milli(v1d, cn1d, v2d,
+                                                             cn2d)
+            else:
+                pk = kernels.battery_components_packed(v1d, cn1d, v2d, cn2d)
+            packed.append(pk)
+            cap = None
+            if capped:
+                cap = kernels.capped_ks_d(
+                    v1d, cn1d, v2d, cn2d, sh[4], cov=cov,
+                    repeats=cfg.downsampling,
+                    quantile_idx=battery._quantile_idx(cfg),
+                    seed=cfg.downsampling_seed)
+            caps.append(cap)
+            if want_comb:
+                stencil_in.append((
+                    pk[0].view(torch.int32),
+                    cap if cap is not None else torch.zeros(
+                        shard_len, dtype=torch.int32, device=v1d.device),
+                    cn1d, cn2d, *sh[-2:]))
+        nb = (sharded_stencil(stencil_in, int(cfg.neighbor_pvalues), cov)
+              if want_comb else None)
+
+        # ---- host float64 finalization, a shard a thread ----
+        out = {k: np.empty(p_total, np.float64)
+               for k in ("stu", "pu", "stt", "pt", "stks", "pks")}
+        mstd = np.empty((p_total, 4), np.float64) if want_mstd else None
+        stcomb = np.empty(p_total, np.float64) if want_comb else None
+        pcomb = np.empty(p_total, np.float64) if want_comb else None
+        w = (special.stouffer_weights(cfg.neighbor_pvalues, cfg.weights_dif)
+             if want_comb and cfg.test_method == "stouffer" else None)
+
+        def finalize(s):
+            lo, hi = spans[s]
+            n_rows = hi - lo
+            if n_rows <= 0:
+                return
+            cols = battery.finalize_packed(
+                packed[s].cpu().numpy(), n_rows, n1[lo:hi], n2[lo:hi],
+                None if caps[s] is None else caps[s].cpu().numpy(),
+                cov, is_milli, want_mstd)
+            for key in ("stu", "pu", "stt", "pt", "stks", "pks"):
+                out[key][lo:hi] = cols[key]
+            if want_mstd:
+                mstd[lo:hi] = cols["mstd"]
+            if want_comb:
+                # neighbor p-values from the halo-exchanged exact
+                # components, through the same f64 transform as the center
+                # column (bit-identical: D = integer numerator / (ne1*ne2)
+                # in f64)
+                d_nb, ne1_nb, ne2_nb, ok_nb = (t[:, :n_rows].cpu().numpy()
+                                               for t in nb[s])
+                ne1m = ne1_nb.astype(np.float64)
+                ne2m = ne2_nb.astype(np.float64)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    dm = d_nb.astype(np.float64) / (ne1m * ne2m)
+                p_nb = special.clamp_p(special.ks_pvalue(dm, ne1m, ne2m))
+                mat = np.where(ok_nb, p_nb, 1.0).T   # [n_rows, 2k+1]
+                if cfg.test_method == "fisher":
+                    st, pv = special.fisher_combine(mat, axis=1)
+                else:
+                    st, pv = special.stouffer_combine(mat, w, axis=1)
+                stcomb[lo:hi] = special.clamp_stat(st)
+                pcomb[lo:hi] = special.clamp_p(pv)
+
+        list(pool.map(finalize, range(nsh)))
+
+    return battery.TestResult(**out, stcomb=stcomb, pcomb=pcomb, mstd=mstd)

@@ -219,10 +219,8 @@ def walk_packed_cuda(tb, best_i, best_k):
     bk = best_k.contiguous()
     codes = torch.empty((bsz, (2 * m + w) // 4), dtype=torch.uint8,
                         device=dev)
-    rc = kbuild.lib().nm_walk_packed(tb.data_ptr(), bi.data_ptr(),
-                                     bk.data_ptr(), codes.data_ptr(), bsz,
-                                     m, w, kbuild.stream_ptr(dev))
-    kbuild.check(rc, "walk")
+    kbuild.launch("walk", "nm_walk_packed", dev, tb.data_ptr(),
+                  bi.data_ptr(), bk.data_ptr(), codes.data_ptr(), bsz, m, w)
     kbuild.LAUNCHES["walk"] += 1
     return codes
 

@@ -47,12 +47,10 @@ def banded_sw_cuda(read_codes, ref_window_codes, read_len, *,
     best = torch.empty(bsz, dtype=torch.float32, device=dev)
     bi = torch.empty(bsz, dtype=torch.int32, device=dev)
     bk = torch.empty(bsz, dtype=torch.int32, device=dev)
-    lib = kbuild.lib()
-    rc = lib.nm_banded_sw(
+    kbuild.launch(
+        "banded_sw", "nm_banded_sw", dev,
         read_c.data_ptr(), ref_c.data_ptr(), lens.data_ptr(),
         tb.data_ptr(), best.data_ptr(), bi.data_ptr(), bk.data_ptr(),
-        bsz, m, w, float(match), float(mismatch), float(go), float(ge),
-        kbuild.stream_ptr(dev))
-    kbuild.check(rc, "banded_sw")
+        bsz, m, w, float(match), float(mismatch), float(go), float(ge))
     kbuild.LAUNCHES["banded_sw"] += 1
     return tb, best, bi, bk

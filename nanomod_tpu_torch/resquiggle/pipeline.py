@@ -1,11 +1,11 @@
 """The Annotate pipeline: raw FAST5 -> indel-corrected per-base annotation.
 
-Port of nanomod_tpu/resquiggle/pipeline.py for one device in one process.
-Reads are k-mer seeded (resquiggle/seed.py), aligned by the banded affine
-DP on the device (kernel K1), their tracebacks walked on the device (kernel
-K2) so that only 2-bit op codes come back, then corrected and assembled by
-the native core (annotate_core.cpp) and written back into each FAST5 by the
-native writer (fast5_write.cpp).  The FAST5 parsers and writers are the
+Port of nanomod_tpu/resquiggle/pipeline.py.  Reads are k-mer seeded
+(resquiggle/seed.py), aligned by the banded affine DP on the device (kernel
+K1), their tracebacks walked on the device (kernel K2) so that only 2-bit
+op codes come back, then corrected and assembled by the native core
+(annotate_core.cpp) and written back into each FAST5 by the native writer
+(fast5_write.cpp).  The FAST5 parsers and writers are the
 repo's own C++ (no libhdf5); h5py, where installed, only serves files the
 native code declines, and where it is missing such a file raises.
 
@@ -14,12 +14,16 @@ with ``non_blocking=True``; the packed result comes back by a non-blocking
 copy into pinned memory behind a ``torch.cuda.Event`` that
 ``fetch_outputs`` waits on; the device-walk path (``use_device_walk``,
 the walk's codes packed four a byte, mode "codes2") is the only alignment
-path; ``n_devices > 1``, multi-host runs and the external aligners raise
-NotImplementedError.
+path; the external aligners raise NotImplementedError.  ``n_devices > 1``
+deals the DP sub-batches round-robin over the first min(n_devices,
+device_count) CUDA devices; under several processes (torch.distributed,
+parallel/dist.py) each rank annotates its round-robin file shard and every
+rank prints the merged statistics.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 from collections import defaultdict
 from dataclasses import dataclass
@@ -92,9 +96,6 @@ def _check_supported(cfg: AnnotateConfig, device):
         raise NotImplementedError(
             "only the native, device-walk Annotate path is ported "
             "(use_native=True, use_device_walk=True)")
-    if cfg.n_devices and cfg.n_devices > 1:
-        raise NotImplementedError(
-            "n_devices > 1: multi-GPU Annotate fan-out is not ported")
 
 
 def _h5py_required(paths, what: str):
@@ -307,6 +308,20 @@ def finish_alignment(batch: DPBatch, cfg: AnnotateConfig):
     return out
 
 
+def _fan_out_devices(cfg: AnnotateConfig, device) -> List[torch.device]:
+    """The devices the DP sub-batches are dealt to, round-robin: with
+    ``n_devices > 1`` on CUDA, the first min(n_devices, device_count) CUDA
+    devices (the reference clamps the same way), else ``device`` alone.
+    Results do not depend on it: the DP is deterministic and batches are
+    finished in dispatch order."""
+    device = torch.device(device)
+    if device.type == "cuda" and cfg.n_devices and cfg.n_devices > 1:
+        n = min(cfg.n_devices, torch.cuda.device_count())
+        if n > 1:
+            return [torch.device("cuda", i) for i in range(n)]
+    return [device]
+
+
 def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
                      device, sub_hint: int = 0):
     """Align + correct + write back prepared reads on ``device``.
@@ -355,12 +370,14 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
                            sub if len(bucket_reads) > sub else 0)
 
     dp_parts = dp_parts_gen()
+    devices = itertools.cycle(_fan_out_devices(cfg, device))
 
     def dispatch_next():
         """Next in-flight DPBatch, or None at the end of the stream."""
         for part, pad in dp_parts:
             with stage("align_dp", unit="reads") as s:
-                dpb = dispatch_dp(part, fasta, cfg, device, pad_bsz=pad)
+                dpb = dispatch_dp(part, fasta, cfg, next(devices),
+                                  pad_bsz=pad)
                 s.add(len(part))
             if dpb is not None:
                 return dpb
@@ -542,19 +559,33 @@ def annotate_files(paths: List[str], cfg: AnnotateConfig, device="cuda"):
 def annotate_folder(cfg: AnnotateConfig, device="cuda"):
     """Discover the FAST5s under cfg.wrk_base1 and annotate them on
     ``device``, reporting throughput, the error histogram and the kernels'
-    launch counts (in cfg.metrics_file when set)."""
+    launch counts (in cfg.metrics_file when set; one file a rank under
+    several processes, metrics_path).
+
+    Under several processes (torch.distributed) each rank annotates its
+    round-robin shard of the file list in place, the analog of the
+    reference's SGE fan-out (ref myRefBaseSignalAnnotation.py:1452-1483),
+    and the error / histogram report is merged so every rank prints the
+    global totals."""
     import time
 
     import nanomod_tpu_torch
     from nanomod_tpu_torch.utils.observe import observer, report
-    from nanomod_tpu_torch.metrics import write_metrics
+    from nanomod_tpu_torch.metrics import metrics_path, write_metrics
+    from nanomod_tpu_torch.parallel import dist
 
     device = resolve_device(device)
     nanomod_tpu_torch.tune_malloc()
     observer().reset()
     start = time.time()
     paths = list(iter_fast5_files(cfg.wrk_base1, recursive=cfg.recursive))
-    print(f"Total f5={len(paths)}")
+    rank, world = dist.process_info()
+    if world > 1:
+        n_global = len(paths)
+        paths = dist.shard_list(paths)
+        print(f"Total f5={n_global} (rank {rank}/{world}: {len(paths)})")
+    else:
+        print(f"Total f5={len(paths)}")
     if cfg.resume:
         _h5py_required(paths, "--resume")
         from nanomod_tpu_torch.io.fast5 import has_corrected_group
@@ -580,6 +611,9 @@ def annotate_folder(cfg: AnnotateConfig, device="cuda"):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - start
+    if world > 1:
+        total_ok, all_errors, all_hist = dist.merge_annotate_stats(
+            total_ok, all_errors, all_hist)
     if all_hist:
         print("Resegmentation information:")
         for wnd in sorted(all_hist):
@@ -590,7 +624,8 @@ def annotate_folder(cfg: AnnotateConfig, device="cuda"):
     print(f"Total consuming time {dt:.0f} ({total_ok / max(dt, 1e-9):.1f} reads/s)")
     report(cfg.out_level)
     if cfg.metrics_file:
-        write_metrics(cfg.metrics_file, device, reads_ok=total_ok,
-                      seconds=dt)
+        write_metrics(metrics_path(cfg.metrics_file, rank, world), device,
+                      reads_ok=total_ok, seconds=dt, rank=rank,
+                      world_size=world)
     return total_ok, dict(all_errors)
 

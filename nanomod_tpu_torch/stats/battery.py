@@ -83,18 +83,25 @@ def _tile_slice(values, counts, lo, hi, cap, p_tile):
     c[: hi - lo] = np.minimum(counts[lo:hi], cap)
     chunk = values[lo:hi, :w]
     if chunk.dtype != np.int16:
-        with np.errstate(invalid="ignore"):
-            scaled = chunk * np.float32(1000.0)
-            r = np.rint(scaled)
-            exact = bool(np.abs(scaled).max(initial=0.0) < 32767.0) and bool(
-                (np.abs(scaled - r) < 0.01).all())
-        if exact:
-            chunk = r.astype(np.int16)
+        milli = _milli_values(chunk)
+        if milli is not None:
+            chunk = milli
     if hi - lo == p_tile and w == cap:
         return np.ascontiguousarray(chunk), c
     v = np.zeros((p_tile, cap), dtype=chunk.dtype)
     v[: hi - lo, :w] = chunk
     return v, c
+
+
+def _milli_values(chunk: np.ndarray) -> np.ndarray | None:
+    """``chunk`` as int16 milli values (value*1000) when every value is an
+    exact multiple of 0.001 within int16 range, else None."""
+    with np.errstate(invalid="ignore"):
+        scaled = chunk * np.float32(1000.0)
+        r = np.rint(scaled)
+        exact = bool(np.abs(scaled).max(initial=0.0) < 32767.0) and bool(
+            (np.abs(scaled - r) < 0.01).all())
+    return r.astype(np.int16) if exact else None
 
 
 def _to_pinned(t: torch.Tensor) -> torch.Tensor:

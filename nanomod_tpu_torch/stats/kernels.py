@@ -142,13 +142,10 @@ def battery_rows_cuda(values1, counts1, values2, counts2, *, milli: bool):
     n2 = counts2.to(torch.int32).contiguous()
     out = torch.empty((9 if milli else 3, p_dim), dtype=torch.int32,
                       device=dev)
-    lib = kbuild.lib()
-    rc = lib.nm_battery(v1.data_ptr(), n1.data_ptr(), c1, v2.data_ptr(),
-                        n2.data_ptr(), c2, p_dim,
-                        1 if v1.dtype == torch.int16 else 0,
-                        1 if milli else 0, out.data_ptr(),
-                        kbuild.stream_ptr(dev))
-    kbuild.check(rc, "battery")
+    kbuild.launch("battery", "nm_battery", dev, v1.data_ptr(),
+                  n1.data_ptr(), c1, v2.data_ptr(), n2.data_ptr(), c2, p_dim,
+                  1 if v1.dtype == torch.int16 else 0, 1 if milli else 0,
+                  out.data_ptr())
     kbuild.LAUNCHES["battery"] += 1
     return out
 
@@ -192,6 +189,54 @@ def battery_components_packed(values1, counts1, values2, counts2):
     ss2 = torch.where(mask2, (values2 - m2[:, None]) ** 2, zero).sum(dim=1)
     return torch.cat([ranks.view(f32),
                       torch.stack([m1.to(f32), ss1, m2.to(f32), ss2])])
+
+
+def pooled_rank_components_plain(z, lab, n1, n2):
+    """Plain PyTorch twin of pooled_rank_components, a transcription of the
+    reference's: the pairwise counts of the valid values of each group
+    against the pooled row."""
+    valid = z < float("inf")
+    mask1 = valid & (lab > 0.5)
+    mask2 = valid & (lab <= 0.5)
+    n1i = n1.to(torch.int32)
+    n2i = n2.to(torch.int32)
+    p_dim, width = z.shape
+    d_num = torch.empty(p_dim, dtype=torch.int32, device=z.device)
+    trs = torch.empty_like(d_num)
+    ties = torch.empty_like(d_num)
+    step = max(1, _PLAIN_CHUNK_ELEMS // max(1, 2 * width * width))
+    for lo in range(0, p_dim, step):
+        sl = slice(lo, min(lo + step, p_dim))
+        d_num[sl], trs[sl], ties[sl] = _pairwise_components(
+            z[sl], mask1[sl], z[sl], mask2[sl], n1i[sl], n2i[sl])
+    return d_num.to(torch.float32) / (n1 * n2), trs, ties
+
+
+def pooled_groups(z, lab):
+    """The pooled layout as K3's two groups: each group's valid values moved
+    to the front of its row (stable, so in their pooled order) and its
+    count, (values1, counts1, values2, counts2)."""
+    valid = z < float("inf")
+    out = []
+    for mask in (valid & (lab > 0.5), valid & (lab <= 0.5)):
+        order = torch.argsort((~mask).to(torch.int32), dim=1, stable=True)
+        out += [torch.gather(z, 1, order).contiguous(),
+                mask.sum(dim=1, dtype=torch.int32)]
+    return tuple(out)
+
+
+def pooled_rank_components(z, lab, n1, n2):
+    """Rank / KS components from a pooled layout (the reference's
+    pooled_rank_components): z [P, N] f32 with +inf pads, lab [P, N] f32
+    (1.0 = group 1), n1/n2 [P] f32, the groups' valid counts.  Returns (d
+    f32 = ks_num / (n1 n2), two_rank_sum i32, tie_sum i32) [P].  For CPU
+    tensors the plain version; for CUDA tensors the layout is reshuffled
+    into K3's two groups on the card and K3's f32 path runs (raises if it
+    cannot launch)."""
+    if z.device.type == "cpu":
+        return pooled_rank_components_plain(z, lab, n1, n2)
+    rows = battery_rows_cuda(*pooled_groups(z, lab), milli=False)
+    return rows[0].to(torch.float32) / (n1 * n2), rows[1], rows[2]
 
 
 # ---------------------------------------------------------------------------
@@ -342,13 +387,11 @@ def capped_ks_d_cuda(values1, counts1, values2, counts2, row_index=None, *,
     ri = row_index.contiguous()
     out = torch.empty(p_dim, dtype=torch.int32, device=dev)
     k_hi, k_lo = threefry.prng_key(seed)
-    lib = kbuild.lib()
-    rc = lib.nm_capped_ks(v1.data_ptr(), n1.data_ptr(), v1.shape[1],
-                          v2.data_ptr(), n2.data_ptr(), v2.shape[1],
-                          ri.data_ptr(), p_dim, cov, repeats, quantile_idx,
-                          k_hi, k_lo, 1 if v1.dtype == torch.int16 else 0,
-                          out.data_ptr(), kbuild.stream_ptr(dev))
-    kbuild.check(rc, "capped_ks")
+    kbuild.launch("capped_ks", "nm_capped_ks", dev, v1.data_ptr(),
+                  n1.data_ptr(), v1.shape[1], v2.data_ptr(), n2.data_ptr(),
+                  v2.shape[1], ri.data_ptr(), p_dim, cov, repeats,
+                  quantile_idx, k_hi, k_lo,
+                  1 if v1.dtype == torch.int16 else 0, out.data_ptr())
     kbuild.LAUNCHES["capped_ks"] += 1
     return out
 
@@ -367,10 +410,9 @@ def capped_draws_cuda(counts, row_index, *, cov, repeats, seed, group):
     ri = row_index.contiguous()
     out = torch.empty((p_dim, repeats * cov), dtype=torch.int32, device=dev)
     k_hi, k_lo = threefry.prng_key(seed)
-    rc = kbuild.lib().nm_capped_draws(n.data_ptr(), ri.data_ptr(), p_dim,
-                                      repeats * cov, k_hi, k_lo, group,
-                                      out.data_ptr(), kbuild.stream_ptr(dev))
-    kbuild.check(rc, "capped_draws")
+    kbuild.launch("capped_draws", "nm_capped_draws", dev, n.data_ptr(),
+                  ri.data_ptr(), p_dim, repeats * cov, k_hi, k_lo, group,
+                  out.data_ptr())
     return out
 
 

@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3 and K6 against their plain PyTorch versions on the
-card.
+"""Kernels K1, K2, K3, K6, K7 and K9 against their plain PyTorch versions
+on the card, and the sharded battery against the single-device one.
 
 These tests need an NVIDIA card and nvcc; without a card they skip.  Run
 them on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -269,3 +269,111 @@ def test_run_battery_capped_device_equals_host(dev):
     for key in ("stks", "pks"):
         np.testing.assert_array_equal(getattr(d, key), getattr(h, key))
         np.testing.assert_array_equal(getattr(d, key), getattr(c, key))
+
+
+def _stencil_shards(rng, dev, nsh, length, cov):
+    """Shards of (num, cap, n1c, n2c, pos, valid) on ``dev``: two joins
+    (positions start again inside a shard), capped and uncapped rows,
+    padding at the end."""
+    p = nsh * length
+    hi = 2 * cov if cov else 60
+    cols = [rng.integers(0, 5000, p), rng.integers(0, 5000, p),
+            rng.integers(1, hi + 1, p), rng.integers(1, hi + 1, p)]
+    n_valid = p - 13
+    cut = p // 3
+    pos = np.full(p, -(2 ** 30), np.int64)
+    pos[:cut] = np.cumsum(rng.integers(1, 3, cut))
+    pos[cut:n_valid] = 5 + np.cumsum(rng.integers(1, 3, n_valid - cut))
+    valid = np.arange(p) < n_valid
+    arrays = [c.astype(np.int32) for c in cols + [pos]] + [valid]
+    tensors = [torch.from_numpy(a).to(dev) for a in arrays]
+    return [tuple(t[s * length:(s + 1) * length] for t in tensors)
+            for s in range(nsh)]
+
+
+@pytest.mark.parametrize("k,cov", [(0, 0), (2, 0), (2, 200), (5, 30)])
+def test_k7_matches_plain(dev, k, cov):
+    from nanomod_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(k * 100 + cov)
+    shards = _stencil_shards(rng, dev, 4, 300, cov)
+    before = kbuild.launch_counts()["stencil"]
+    got = sharded.sharded_stencil(shards, k, cov)
+    assert kbuild.launch_counts()["stencil"] == before + 4
+    cpu = [tuple(t.cpu() for t in sh) for sh in shards]
+    want = sharded.sharded_stencil(cpu, k, cov)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_k9_matches_plain(dev):
+    from nanomod_tpu_torch.parallel import mesh
+    rng = np.random.default_rng(9)
+    g = 5000
+    pos = rng.integers(-5, g + 5, 200_000).astype(np.int32)
+    val = rng.normal(0, 1, 200_000).astype(np.float32)
+    ok = rng.random(200_000) < 0.9
+    t = [torch.from_numpy(x).to(dev) for x in (pos, val, ok)]
+    before = kbuild.launch_counts()["accumulate"]
+    got = [x.cpu() for x in mesh.accumulate(*t, g)]
+    assert kbuild.launch_counts()["accumulate"] == before + 1
+    want = mesh.accumulate_plain(*(x.cpu() for x in t), g)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_pooled_rank_components_on_k3_match_plain(dev):
+    rng = np.random.default_rng(4)
+    p, n = 3000, 64
+    z = np.where(rng.random((p, n)) < 0.8,
+                 np.round(rng.normal(0, 1, (p, n)), 2), np.inf)
+    z = np.sort(z, axis=1).astype(np.float32)
+    lab = (rng.random((p, n)) < 0.5).astype(np.float32)
+    lab[:, :2] = (1.0, 0.0)                     # both groups non-empty
+    lab[~np.isfinite(z)] = 0.0
+    fin = np.isfinite(z)
+    n1 = (lab * fin).sum(1).astype(np.float32)
+    n2 = ((1 - lab) * fin).sum(1).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (z, lab, n1, n2)]
+    before = kbuild.launch_counts()["battery"]
+    got = kernels.pooled_rank_components(*t)
+    assert kbuild.launch_counts()["battery"] == before + 1
+    want = kernels.pooled_rank_components_plain(*t)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("method,cov", [("stouffer", 0), ("fisher", 40),
+                                        ("stouffer", 40)])
+def test_sharded_join_battery_on_card_equals_single_device(dev, method, cov):
+    """Four shards on one card (K3, K6, K7 a shard): every float64 column
+    bit-equal to run_battery on the card plus the host combination."""
+    from nanomod_tpu_torch.config import StatConfig
+    from nanomod_tpu_torch.parallel import mesh, sharded
+    from nanomod_tpu_torch.stats.combine import combine_neighbor_pvalues
+    rng = np.random.default_rng(cov + len(method))
+    p, c = 6000, 64
+    v1 = np.round(rng.normal(0, 1, (p, c)), 3).astype(np.float32)
+    v2 = np.round(rng.normal(0.2, 1, (p, c)), 3).astype(np.float32)
+    n1 = rng.integers(1, c + 1, p).astype(np.int32)
+    n2 = rng.integers(1, c + 1, p).astype(np.int32)
+    pos = np.cumsum(rng.integers(1, 3, p)).astype(np.int64)
+    cfg = StatConfig(test_method=method, coverages=(cov, cov),
+                     downsampling=20)
+    before = kbuild.launch_counts()
+    got = sharded.sharded_join_battery(
+        mesh.make_mesh(4, devices=[dev] * 4), v1, n1, v2, n2, pos, cfg=cfg,
+        want_mstd=True)
+    after = kbuild.launch_counts()
+    assert after["battery"] == before["battery"] + 4
+    assert after["stencil"] == before["stencil"] + 4
+    assert after["capped_ks"] == before["capped_ks"] + (4 if cov else 0)
+    want = battery.run_battery(v1, n1, v2, n2, cfg=cfg, device=dev,
+                               want_mstd=True)
+    want.stcomb, want.pcomb = combine_neighbor_pvalues(
+        np.zeros(p, np.int64), pos, want.pks, cfg)
+    for key in ("stu", "pu", "stt", "pt", "stks", "pks", "stcomb", "pcomb",
+                "mstd"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key),
+                                      err_msg=key)

@@ -69,8 +69,9 @@ def test_annotate_fast5_byte_identical(chain):
         with open(os.path.join(root, f"annotate_{group}.json")) as f:
             metrics = json.load(f)
         # on the CPU the wrappers run the plain versions: no kernel launch
-        assert metrics["kernel_launches"] == {"banded_sw": 0, "walk": 0,
-                                              "battery": 0, "capped_ks": 0}
+        assert metrics["kernel_launches"] == {
+            "banded_sw": 0, "walk": 0, "battery": 0, "capped_ks": 0,
+            "stencil": 0, "accumulate": 0}
         assert metrics["reads_ok"] >= 10
 
 
@@ -137,7 +138,7 @@ def test_prepare_and_alignment_match_jax(chain):
                 np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("kw", [dict(align="bwa"), dict(n_devices=2),
+@pytest.mark.parametrize("kw", [dict(align="bwa"), dict(band_width=130),
                                 dict(use_native=False),
                                 dict(use_device_walk=False)])
 def test_annotate_unported_options_raise(chain, kw):
@@ -163,8 +164,9 @@ def test_annotate_band_width_checked(width, device, ok):
             _check_supported(cfg, device)
 
 
-@pytest.mark.parametrize("kw", [dict(merge_mode="sharded"),
-                                dict(n_devices=2), dict(make_plots=True),
+@pytest.mark.parametrize("kw", [dict(native_ingest=False),
+                                dict(make_plots=True, merge_mode="sharded"),
+                                dict(make_plots=True),
                                 dict(profile_dir="trace")])
 def test_detect_unported_options_raise(kw):
     from nanomod_tpu_torch.detect import run_detect

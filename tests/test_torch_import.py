@@ -44,7 +44,8 @@ def test_no_port_module_imports_jax():
                 "accum.pools", "utils.observe", "native.build",
                 "native.fast5_bind", "native.annotate_bind",
                 "native.fast5_write_bind", "native.prepare_bind",
-                "native.format_bind"):
+                "native.format_bind", "parallel", "parallel.dist",
+                "parallel.mesh", "parallel.sharded", "parallel.shardmerge"):
         assert f"nanomod_tpu_torch.{mod}" in names, mod
     assert out[1] == "False False True", out[1]
     assert len(out) == 2 or out[2] == "", f"JAX-package modules: {out[2]}"
