@@ -6,17 +6,20 @@
 Phase 0  prints the card (nvidia-smi name and power limit), the PyTorch and
          CUDA versions; builds the CUDA kernels (nvcc, sm_90a) and the
          native host libraries from the sources in the checkout.
-Phase 1  K1 (banded DP) and K2 (the traceback walk, codes packed four a
-         byte) against their plain PyTorch versions on the card: B = 256
-         synthetic reads (genome windows with ~5 % substitutions and
-         indels, some reads shorter than their bucket, some N codes),
-         W = 128, M = 1024 (the bucket of the main path's reads), 2048,
-         4096, 8192; then a batch rich in ties (tandem repeats whose best
-         score is reached at several cells), an all-mismatch batch (best 0
-         at (0, 0)), a ragged B = 37, and W = 32 and W = 1024 at M = 256.
-         tb, best, best_i, best_k and the packed walk codes must be
-         array-equal.  Each kernel's time is printed beside its bound and
-         the range of single launches recorded for the first kernels
+Phase 1  K1 (banded DP) and K2 (the traceback walk, its codes one a byte
+         and, where 2M+W is a multiple of 4, four a byte) against their
+         plain PyTorch versions on the card: B = 256 synthetic reads
+         (genome windows with ~5 % substitutions and indels, some reads
+         shorter than their bucket, some N codes), W = 128, M = 1024 (the
+         bucket of the main path's reads), 2048, 4096, 8192, and W = 130
+         and 100 at M = 1024; then a batch rich in ties (tandem repeats
+         whose best score is reached at several cells), an all-mismatch
+         batch (best 0 at (0, 0)), a ragged B = 37, W = 32 and W = 1024 at
+         M = 256, and B = 37, M = 256 at W = 1, 4, 31, 33, 100, 130, 1000
+         (off the grids of 32 and 4).  tb, best, best_i, best_k and both
+         walk outputs must be array-equal.  Each kernel's time is printed
+         beside its bound (the plain versions timed at M = 1024) and the
+         range of single launches recorded for the first kernels
          (PERF.md).
 Phase 2  K3 (battery components) at detect scale: P = 1,048,576 positions
          in tiles of 16,384, counts 30..100 per group (capacity 128), int16
@@ -38,7 +41,16 @@ Phase 3  the main path through its entry points: ``python -m
          B = 256), then ``cli detect --device cuda``.  The planted site must rank first, every
          kernel's launch count (from the CLI's metrics file) must be above
          0, and the sign-test table must equal the one the native host
-         battery gives on the same corrected files.
+         battery gives on the same corrected files.  detect's plots:
+         rplot_mod.pdf with pages where matplotlib imports, else the CLI's
+         "not drawn" line.  Then detect again with ``--profileDir``: the
+         same table, K3's kernels in the trace, and the device-busy share
+         of the whole run (the union of kernel and copy intervals over the
+         traced span); ``annotate_folder`` at band_width 130 on 256 of the
+         raw smoke reads, on the card and on the CPU: the walk in mode
+         "codes", K1 and K2 launched, every corrected FAST5 byte-equal;
+         ``cli Annotate --resume 1 --device cuda`` over phase 3's
+         corrected files: all already annotated, 0 to do, none rewritten.
 Phase 4  K6 (coverage-capped KS) against its plain version on the card: one
          tile of P = 16,384 rows, int16 milli values with heavy ties,
          counts 60..645 per group in a 1,024-column capacity, cov = 100,
@@ -58,7 +70,8 @@ Phase 5  the new entry points on phase 3's corrected groups: ``cli detect
          first, K6 launched; sign-test and meanstd files byte-equal to the
          same command with NANOMOD_BATTERY_BACKEND=host), ``cli simulat2``,
          ``cli DownSampling`` and ``cli simulate`` (worker mode) writing
-         their .output / .done files, then ``run_simulate`` at the smoke
+         their .output / .done files (simulate's hist_sim.png, or its "not
+         drawn" line, as phase 3's plots), then ``run_simulate`` at the smoke
          site at 0.9 with each strand as the target: in every trial one of
          the two strands ranks 1, and every trial launches K3.  The capped
          detect's rank 1 must be spel - 501, as the JAX package ranks it
@@ -163,6 +176,10 @@ NATIVE_LIBS = ("fast5_ingest", "fast5_write", "sort_core", "traceback",
 # phase 1's extra batches: M of the W = 32 / 1024 and ragged batches
 DP_SMALL_M = 256
 DP_RAGGED_B = 37
+# band widths off the grid of 32 (K1's ragged last thread) and of 4 (the
+# walk's codes one a byte): at B = 37, M = 256, and two at the main shape
+DP_OFF_GRID = (1, 4, 31, 33, 100, 130, 1000)
+DP_OFF_GRID_MAIN = (130, 100)
 # phase 4's tile above the old cap of 645: widths, rows, cov
 DEEP_CAPS = (1000, 290)
 DEEP_P = 256
@@ -214,6 +231,10 @@ SHARDED_COV = 60
 K7_OPS = 12
 K9_OPS = 4
 TORCHRUN_TIMEOUT = 600
+# phase 3's Annotate off the band-width grids: W (2M+W not a multiple of
+# 4: the unpacked walk) and reads (16 smoke reads, 16 copies each)
+ANNOTATE_W = 130
+ANNOTATE_W_READS = 256
 
 
 def log(*a):
@@ -317,15 +338,18 @@ def k1_work(read, ref, tb):
                 f32_ops=K1_OPS_PER_CELL * tb.numel())
 
 
-def k2_work(torch, packed):
+def k2_work(torch, codes, packed=True):
     """K2's bytes for this run's walks (a tb byte a step taken, best_i and
-    best_k, the packed codes written) and integer operations.  The steps
-    are the non-zero codes plus at most one stop step a read."""
-    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
-                          device=packed.device)
-    steps = int(((packed[..., None] >> shifts) & 3).ne(0).sum()) \
-        + packed.shape[0]
-    return dict(bytes_moved=steps + 8 * packed.shape[0] + packed.numel(),
+    best_k, the codes written: four a byte when ``packed``, else one) and
+    integer operations.  The steps are the non-zero codes plus at most one
+    stop step a read."""
+    written = codes.numel()
+    if packed:
+        shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
+                              device=codes.device)
+        codes = (codes[..., None] >> shifts) & 3
+    steps = int(codes.ne(0).sum()) + codes.shape[0]
+    return dict(bytes_moved=steps + 8 * codes.shape[0] + written,
                 int_ops=K2_OPS_PER_STEP * steps)
 
 
@@ -469,8 +493,10 @@ def profile_run_battery(torch, battery, kernels, args, dev):
 
 
 def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
-    """K1 and K2 against their plain versions on one batch (array-equal);
-    returns K1's outputs, K2's packed codes and the two max abs errors."""
+    """K1 and K2 against their plain versions on one batch (array-equal):
+    the walk's codes one a byte and, where 2M+W is a multiple of 4, four a
+    byte.  Returns K1's outputs, K2's codes as the pipeline takes them
+    (packed where they pack) and the two max abs errors."""
     k_out = banded_sw_cuda(read, ref, lens)
     p_out = banded.banded_sw_plain(read, ref, lens)
     torch.cuda.synchronize()
@@ -478,12 +504,24 @@ def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
         if not torch.equal(a, b):
             raise AssertionError(f"K1 {name} differs from plain: {what}")
     tb, _, bi, bk = k_out
-    ck = banded.walk_packed_cuda(tb, bi, bk)
-    cp = banded.walk_packed_plain(tb, bi, bk)
-    if not torch.equal(ck, cp):
-        raise AssertionError(f"K2 packed codes differ from plain: {what}")
-    return (k_out, ck, max_abs_err(torch, zip(k_out, p_out)),
-            max_abs_err(torch, [(ck, cp)]))
+    codes = banded.walk_device_plain(tb, bi, bk)
+    pairs = [(banded.walk_codes_cuda(tb, bi, bk), codes)]
+    if codes.shape[1] % 4 == 0:
+        pairs.append((banded.walk_packed_cuda(tb, bi, bk),
+                      banded.pack_codes2(codes)))
+    for (ck, cp), mode in zip(pairs, ("codes", "codes2")):
+        if not torch.equal(ck, cp):
+            raise AssertionError(f"K2 {mode} differ from plain: {what}")
+    return (k_out, pairs[-1][0], max_abs_err(torch, zip(k_out, p_out)),
+            max_abs_err(torch, pairs))
+
+
+def dp_walk(banded, tb):
+    """The walk the pipeline takes for this tb (kernel, plain): packed
+    when 2M+W is a multiple of 4, else one code a byte."""
+    if (2 * tb.shape[1] + tb.shape[2]) % 4 == 0:
+        return banded.walk_packed_cuda, banded.walk_packed_plain
+    return banded.walk_codes_cuda, banded.walk_device_plain
 
 
 def phase1(torch, dev):
@@ -495,42 +533,49 @@ def phase1(torch, dev):
         return [torch.from_numpy(x).to(dev) for x in arrays]
 
     out = {}
-    for m in DP_BUCKETS:
-        read, ref, lens = on_card(synth_reads(rng, DP_BATCH, m, W))
+    main = [(m, W) for m in DP_BUCKETS] \
+        + [(MAIN_PATH_BUCKET, w) for w in DP_OFF_GRID_MAIN]
+    for m, w in main:
+        read, ref, lens = on_card(synth_reads(rng, DP_BATCH, m, w))
         k_out, ck, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read,
-                                     ref, lens, f"M={m}")
+                                     ref, lens, f"M={m} W={w}")
         tb, _, bi, bk = k_out
+        walk, walk_plain = dp_walk(banded, tb)
         k1 = lambda: banded_sw_cuda(read, ref, lens)  # noqa: E731
-        k2 = lambda: banded.walk_packed_cuda(tb, bi, bk)  # noqa: E731
+        k2 = lambda: walk(tb, bi, bk)  # noqa: E731
         res = {
-            "M": m, "B": DP_BATCH, "W": W,
+            "M": m, "B": DP_BATCH, "W": w,
+            "walk_mode": "codes2" if walk is banded.walk_packed_cuda
+            else "codes",
             "k1_max_abs_err": e1, "k2_max_abs_err": e2,
             "k1_ms": time_ms(torch, k1),
             "k1_single_ms": time_ms(torch, k1, n=1),
-            "k1_plain_ms": time_ms(
-                torch, lambda: banded.banded_sw_plain(read, ref, lens),
-                **PLAIN_TIMING),
             "k2_ms": time_ms(torch, k2),
             "k2_single_ms": time_ms(torch, k2, n=1),
-            "k2_plain_ms": time_ms(
-                torch, lambda: banded.walk_packed_plain(tb, bi, bk),
-                **PLAIN_TIMING),
             "mean_best": float(k_out[1].mean()),
         }
+        if m == MAIN_PATH_BUCKET:
+            # the plain versions are timed at the main path's bucket only
+            res["k1_plain_ms"] = time_ms(
+                torch, lambda: banded.banded_sw_plain(read, ref, lens),
+                **PLAIN_TIMING)
+            res["k2_plain_ms"] = time_ms(
+                torch, lambda: walk_plain(tb, bi, bk), **PLAIN_TIMING)
         res["k1_bound_ms"], res["k1_bound_by"] = bound(**k1_work(read, ref,
                                                                  tb))
-        res["k2_bound_ms"], res["k2_bound_by"] = bound(**k2_work(torch, ck))
+        res["k2_bound_ms"], res["k2_bound_by"] = bound(**k2_work(
+            torch, ck, packed=res["walk_mode"] == "codes2"))
         log("phase1", json.dumps(res))
-        if m == MAIN_PATH_BUCKET:
+        if (m, w) == (MAIN_PATH_BUCKET, W):
             for name, key in (("banded_sw", "k1"), ("walk", "k2")):
                 lo, hi = RECORDED_MS[name]
-                log(f"phase1 {name} at B {DP_BATCH}, M {m}, W {W}: single "
+                log(f"phase1 {name} at B {DP_BATCH}, M {m}, W {w}: single "
                     f"launch {res[key + '_single_ms']:.4f} ms (first "
                     f"kernel, single launches: {lo}-{hi} ms), 10-launch mean "
                     f"{res[key + '_ms']:.4f} ms, bound "
                     f"{res[key + '_bound_ms']:.6f} ms "
                     f"({res[key + '_bound_by']})")
-        out[m] = res
+        out[m if w == W else f"W{w}"] = res
 
     extra = {
         "ties": (tie_reads(rng, DP_BATCH, MAIN_PATH_BUCKET, W), W),
@@ -541,6 +586,9 @@ def phase1(torch, dev):
         "W32": (synth_reads(rng, DP_BATCH, DP_SMALL_M, 32), 32),
         "W1024": (synth_reads(rng, DP_BATCH, DP_SMALL_M, 1024), 1024),
     }
+    for w in DP_OFF_GRID:
+        extra[f"W{w}_B{DP_RAGGED_B}"] = (
+            synth_reads(rng, DP_RAGGED_B, DP_SMALL_M, w), w)
     errs = {}
     for what, (arrays, w) in extra.items():
         read, ref, lens = on_card(arrays)
@@ -550,12 +598,13 @@ def phase1(torch, dev):
         if what == "all_mismatch" and (best.any() or bi.any() or bk.any()):
             raise AssertionError("all-mismatch batch: best must be 0 at (0, 0)")
         tb = k_out[0]
+        walk, _ = dp_walk(banded, tb)
         errs[what] = {"k1_max_abs_err": e1, "k2_max_abs_err": e2,
                       "W": w, "B": len(best), "M": read.shape[1],
                       "max_best": float(best.max()),
                       "k1_ms": time_ms(torch, lambda: banded_sw_cuda(
                           read, ref, lens)),
-                      "k2_ms": time_ms(torch, lambda: banded.walk_packed_cuda(
+                      "k2_ms": time_ms(torch, lambda: walk(
                           tb, k_out[2], k_out[3]))}
     log("phase1 extra", json.dumps(errs))
     out["extra"] = errs
@@ -765,6 +814,7 @@ def phase3(torch, dev, tmp):
     if int(rank1[2]) != SMOKE_MOD_POS + 1:
         raise AssertionError(f"planted site {SMOKE_MOD_POS + 1} is not "
                              f"ranked first: {rank1}")
+    plot = check_drawn(out, os.path.join(out_dir, "rplot_mod.pdf"))
     n_files = COPIES * len(os.listdir(os.path.join(data, "ctrl")))
     for group in groups:
         ok = metrics[f"annotate_{group}"]["reads_ok"]
@@ -808,13 +858,191 @@ def phase3(torch, dev, tmp):
         "detect_positions": metrics["detect"]["positions"],
         "detect_positions_per_s": metrics["detect"]["positions"]
         / metrics["detect"]["seconds"],
-        "launches": launches,
+        "launches": launches, "rplot": plot,
         "reads_ok": {g: metrics[f"annotate_{g}"]["reads_ok"] for g in groups},
         "stages": {k: {s: v["seconds"] for s, v in m["stages"].items()}
                    for k, m in metrics.items()},
     }
     log("phase3", json.dumps(res))
     return res, groups
+
+
+def can_plot() -> bool:
+    """Whether matplotlib imports here, as the CLI decides it."""
+    import importlib.util
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def check_drawn(stdout, path):
+    """A plot the CLI draws: where matplotlib imports, the file (a PDF
+    with at least one page); where it does not, the CLI's one line that
+    says so."""
+    name = os.path.basename(path)
+    if not can_plot():
+        line = f"{name} not drawn: matplotlib is not installed"
+        if line not in stdout:
+            raise AssertionError(f"no line {line!r} in the CLI's output")
+        return "not drawn (no matplotlib)"
+    data = _read_bytes(path)
+    if path.endswith(".pdf"):
+        pages = data.count(b"/Type /Page") - data.count(b"/Type /Pages")
+        if pages < 1:
+            raise AssertionError(f"{name} has no page")
+        return f"{pages} pages"
+    if not data.startswith(b"\x89PNG"):
+        raise AssertionError(f"{name} is not a PNG")
+    return f"{len(data)} bytes"
+
+
+def trace_busy_share(path):
+    """From a Chrome trace of torch.profiler: the device-busy share (the
+    union of the kernel and copy intervals over the profiled wall time,
+    the span of all complete events) and the K3 kernel events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    if not events:
+        raise AssertionError(f"{path} holds no complete event")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -np.inf
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    k3 = [e for e in events if e.get("cat") == "kernel"
+          and ("battery_warp" in e["name"] or "battery_block" in e["name"])]
+    return {"wall_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (t1 - t0),
+            "device_events": len(dev), "k3_events": len(k3),
+            "k3_ms": sum(e["dur"] for e in k3) / 1e3}
+
+
+def phase3_traced_detect(tmp, groups):
+    """phase 3's detect once more with --profileDir: the table equal to
+    phase 3's, a trace holding K3's kernel events, and the device-busy
+    share of the whole detect run read off it."""
+    env = _env()
+    trace = os.path.join(tmp, "trace")
+    out_dir = os.path.join(tmp, "out_trace")
+    dfile = os.path.join(tmp, "detect_trace.json")
+    _cli(["detect", "--wrkBase1", groups["ctrl"], "--wrkBase2",
+          groups["case"], "--outFolder", out_dir, "--min_lr", "0",
+          "--device", "cuda", "--metricsFile", dfile, "--profileDir",
+          trace], env)
+    if _read_bytes(os.path.join(out_dir, "mod_sign_test.txt")) != \
+            _read_bytes(os.path.join(tmp, "out", "mod_sign_test.txt")):
+        raise AssertionError("the traced detect's table differs from "
+                             "phase 3's")
+    res = trace_busy_share(os.path.join(trace, "trace.rank0.json"))
+    if res["k3_events"] < 1:
+        raise AssertionError("the detect trace holds no K3 kernel event")
+    with open(dfile) as f:
+        metrics = json.load(f)
+    res.update(seconds=metrics["seconds"],
+               launches=metrics["kernel_launches"],
+               trace_mb=os.path.getsize(os.path.join(
+                   trace, "trace.rank0.json")) / 2 ** 20)
+    log("phase3 detect trace", json.dumps(res))
+    return res
+
+
+def phase3_band_width(torch, dev, tmp):
+    """Annotate at a band width off both grids (library call: the CLI has
+    no band-width option) on ANNOTATE_W_READS of the smoke reads, on the
+    card and on the CPU: every corrected FAST5 byte-equal, K1 and K2
+    launched, the walk in mode "codes" (2M+W not a multiple of 4)."""
+    from nanomod_tpu_torch.config import AnnotateConfig
+    from nanomod_tpu_torch.kernels import build as kbuild
+    from nanomod_tpu_torch.resquiggle import pipeline
+    data = os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data")
+    names = sorted(os.listdir(os.path.join(data, "ctrl")))
+    copies = ANNOTATE_W_READS // len(names)
+    dirs = {}
+    for where in ("cuda", "cpu"):
+        dirs[where] = os.path.join(tmp, f"w{ANNOTATE_W}_{where}")
+        os.makedirs(dirs[where])
+        for name in names:
+            for k in range(copies):
+                shutil.copyfile(os.path.join(data, "ctrl", name),
+                                os.path.join(dirs[where],
+                                             f"{name[:-6]}_{k:02d}.fast5"))
+    modes = []
+    dispatch = pipeline.dispatch_dp
+
+    def recording(*a, **kw):
+        batch = dispatch(*a, **kw)
+        if batch is not None:
+            modes.append("codes2" if batch.packed else "codes")
+        return batch
+
+    res = {"band_width": ANNOTATE_W, "reads": copies * len(names)}
+    pipeline.dispatch_dp = recording
+    try:
+        for where, device in (("cuda", dev), ("cpu", "cpu")):
+            cfg = AnnotateConfig(wrk_base1=dirs[where],
+                                 ref_fasta=os.path.join(data, "ref.fa"),
+                                 band_width=ANNOTATE_W)
+            kbuild.reset_launches()
+            t0 = time.perf_counter()
+            n_ok, _ = pipeline.annotate_folder(cfg, device=device)
+            res[f"{where}_s"] = time.perf_counter() - t0
+            res[f"{where}_reads_ok"] = n_ok
+            res[f"{where}_launches"] = {
+                k: v for k, v in kbuild.launch_counts().items()
+                if k in ("banded_sw", "walk")}
+            res[f"{where}_modes"] = sorted(set(modes))
+            modes.clear()
+    finally:
+        pipeline.dispatch_dp = dispatch
+    log(f"phase3 Annotate band_width={ANNOTATE_W}: walk mode "
+        f"{res['cuda_modes']}")
+    if res["cuda_modes"] != ["codes"] or res["cpu_modes"] != ["codes"]:
+        raise AssertionError(f"band_width {ANNOTATE_W} must walk in mode "
+                             f"codes: {res}")
+    if min(res["cuda_launches"].values()) <= 0:
+        raise AssertionError(f"K1 or K2 was not launched: {res}")
+    if res["cuda_reads_ok"] < 0.9 * res["reads"] or \
+            res["cuda_reads_ok"] != res["cpu_reads_ok"]:
+        raise AssertionError(f"Annotate at band_width {ANNOTATE_W}: {res}")
+    for name in sorted(os.listdir(dirs["cpu"])):
+        if _read_bytes(os.path.join(dirs["cuda"], name)) != \
+                _read_bytes(os.path.join(dirs["cpu"], name)):
+            raise AssertionError(f"{name}: the card's corrected FAST5 "
+                                 f"differs from the CPU's at band_width "
+                                 f"{ANNOTATE_W}")
+    log("phase3 band width", json.dumps(res))
+    return res
+
+
+def phase3_resume(tmp, groups):
+    """``cli Annotate --resume 1 --device cuda`` over the files phase 3
+    corrected (those the native reader reads a corrected group from): all
+    already annotated, 0 to do, every file left as it was."""
+    from nanomod_tpu_torch.native.fast5_bind import read_corrected_batch
+    folder = os.path.join(tmp, "resume")
+    os.makedirs(folder)
+    paths = sorted(os.path.join(groups["ctrl"], n)
+                   for n in os.listdir(groups["ctrl"]))
+    for p, r in zip(paths, read_corrected_batch(paths)):
+        if r is not None:
+            shutil.copyfile(p, os.path.join(folder, os.path.basename(p)))
+    before = {n: _read_bytes(os.path.join(folder, n))
+              for n in os.listdir(folder)}
+    out = _cli(["Annotate", "--wrkBase1", folder, "--Ref",
+                os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data",
+                             "ref.fa"), "--resume", "1", "--device", "cuda"],
+               _env())
+    line = f"Resume: {len(before)} already annotated, 0 to do"
+    log("phase3 resume:", line if line in out else out)
+    if line not in out or len(before) < 0.9 * len(paths):
+        raise AssertionError(f"--resume: no line {line!r}:\n{out}")
+    for n, data in before.items():
+        if _read_bytes(os.path.join(folder, n)) != data:
+            raise AssertionError(f"--resume rewrote {n}")
+    return {"files": len(before)}
 
 
 def _capped_tile(rng, p, cap, lo, hi, cov, kind):
@@ -1026,6 +1254,10 @@ def phase5(torch, dev, tmp, groups):
         for ext in (".output", ".done"):
             if not os.path.isfile(os.path.join(harness, fid + ext)):
                 raise AssertionError(f"{cmd} wrote no {fid}{ext}")
+    # simulate draws its rank histogram (simulat2 and DownSampling draw at
+    # runType 3 only)
+    hist = check_drawn(outs["simulate"], os.path.join(harness,
+                                                      "hist_sim.png"))
 
     # run_simulate at the smoke site.  Both strands carry the planted shift
     # and trade the first place from trial to trial, so the trials run once
@@ -1061,7 +1293,7 @@ def phase5(torch, dev, tmp, groups):
         "capped_launches": launches,
         "capped_stages": {k: v["seconds"]
                           for k, v in metrics["stages"].items()},
-        "cli_s": cli_s,
+        "cli_s": cli_s, "hist": hist,
         "run_simulate_ranks": ranks, "run_simulate_k3_launches": k3,
         "run_simulate_s": sim_s,
     }
@@ -1586,6 +1818,9 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="nanomod_smoke_")
     try:
         p3, groups = phase3(torch, dev, tmp)
+        p3["trace"] = phase3_traced_detect(tmp, groups)
+        p3["band_width"] = phase3_band_width(torch, dev, tmp)
+        p3["resume"] = phase3_resume(tmp, groups)
         p4 = phase4(torch, dev)
         p5 = phase5(torch, dev, tmp, groups)
         p6 = phase6(torch, dev, tmp, groups)

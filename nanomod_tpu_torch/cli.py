@@ -8,9 +8,13 @@ nanomod_tpu.cli, with the same flags plus ``--device`` (default ``cuda``)::
     python -m nanomod_tpu_torch.cli DownSampling --CaseSize 100
 
 ``--metricsFile`` (Annotate, detect) writes per-stage timings and the CUDA
-kernels' launch counts as JSON.  Plots are not ported: detect accepts
-``--plotType`` and draws nothing, and the harness writes every ``.output``
-/ ``.done`` file but prints a line instead of drawing ``hist_<FileID>.png``.
+kernels' launch counts as JSON; ``--profileDir`` (detect) writes a
+torch.profiler trace of the host and the card.  detect draws
+``rplot_<FileID>.pdf`` and the harness ``hist_<FileID>.png``, as the
+reference does, where matplotlib imports.  Where it does not, each prints
+one ``... not drawn: matplotlib is not installed`` line a plot instead and
+writes every table; the CLI decides that once a run, alike on every rank.
+Under several processes rank 0 draws.
 
 Several processes: launch through torchrun, e.g. ``python -m
 torch.distributed.run --standalone --nproc_per_node 2 -m
@@ -27,6 +31,8 @@ import argparse
 
 import glob
 import os
+
+import numpy as np
 
 from nanomod_tpu_torch.parallel import dist
 from nanomod_tpu_torch.config import (OUTPUT_DEBUG, OUTPUT_ERROR, OUTPUT_INFO,
@@ -90,15 +96,33 @@ def _rank_cfg(a) -> RankConfig:
     )
 
 
+def _can_plot() -> bool:
+    """Whether matplotlib imports, alike on every rank (the least answer of
+    all ranks), so that the ranks agree on the plots' collectives."""
+    try:
+        import matplotlib  # noqa: F401
+        ok = 1
+    except ImportError:
+        ok = 0
+    if dist.process_info()[1] > 1:
+        ok = int(np.min(dist._multihost_gather(np.array([ok], np.int32))))
+    return bool(ok)
+
+
+def _not_drawn(name: str):
+    print(f"{name} not drawn: matplotlib is not installed")
+
+
 def cmd_detect(a):
     from nanomod_tpu_torch.detect import run_detect
+    plots = _can_plot()
     cfg = DetectConfig(
         wrk_base1=a.wrkBase1, wrk_base2=a.wrkBase2,
         out_folder=a.outFolder, file_id=a.FileID, out_level=a.outLevel,
         min_coverage=a.MinCoverage,
         stats=_stat_cfg(a, a.coverages), rank=_rank_cfg(a),
         min_lr=a.min_lr, min_lr_nb=a.min_lr_nb, mstd=bool(a.mstd),
-        save_test=bool(a.SaveTest), plot_type=a.plotType, make_plots=False,
+        save_test=bool(a.SaveTest), plot_type=a.plotType, make_plots=plots,
         metrics_file=a.metricsFile or None, profile_dir=a.profileDir or None,
         n_devices=a.n_devices, tile_positions=a.tile_positions,
         pool_capacity=a.pool_capacity, merge_mode=a.merge_mode,
@@ -112,6 +136,8 @@ def cmd_detect(a):
             kw["pos2"] = int(parts[2]) - 1
         cfg = replace(cfg, **kw)
     table, order, sites = run_detect(cfg, device=a.device)
+    if not plots:
+        _not_drawn(f"rplot_{cfg.file_id}.pdf")
     for s in sites[: cfg.rank.top_n]:
         print(f"Rank {s.rank}: {s.chrom} {s.strand} {s.pos + 1} {s.base}")
 
@@ -130,11 +156,17 @@ def _sim_cfg(a, percentages=(0.3,), percentage=0.3) -> SimulateConfig:
     )
 
 
-def _no_histogram(cfg: SimulateConfig):
-    """Where the reference draws the rank histogram (matplotlib), say that
-    it is not drawn."""
-    print(f"hist_{cfg.file_id}.png not drawn: plots are not ported "
-          f"(the .output files are in {cfg.out_folder})")
+def _histogram(cfg: SimulateConfig, grouped, labels, xlabel="MixedPerc"):
+    """The reference's rank histogram, hist_<FileID>.png (rank 0 draws), or
+    the line that says it is not drawn."""
+    name = f"hist_{cfg.file_id}.png"
+    if not _can_plot():
+        _not_drawn(name)
+    elif dist.process_info()[0] == 0:
+        from nanomod_tpu_torch.harness.plots import plot_rank_histogram
+        plot_rank_histogram(grouped, labels,
+                            os.path.join(cfg.out_folder, name),
+                            xlabel=xlabel)
 
 
 def _output_ids(out_folder: str, prefix: str = "") -> list:
@@ -143,7 +175,8 @@ def _output_ids(out_folder: str, prefix: str = "") -> list:
 
 
 def cmd_simulate(a):
-    from nanomod_tpu_torch.harness.simulate import (merge_grid_outputs,
+    from nanomod_tpu_torch.harness.simulate import (group_ranks,
+                                                    merge_grid_outputs,
                                                     run_simulate,
                                                     run_simulate_grid)
     percs = sorted(float(x) for x in a.Percentages.split(","))
@@ -151,10 +184,10 @@ def cmd_simulate(a):
     if a.wrkBase3 is None:
         # grid mode (ref mySimulate.py:344-467): the subfolder-pair grid
         fids, _ = run_simulate_grid(cfg, device=a.device)
-        merge_grid_outputs(cfg, fids)
+        grouped, labels = merge_grid_outputs(cfg, fids)
     else:
-        run_simulate(cfg, device=a.device)
-    _no_histogram(cfg)
+        grouped, labels = group_ranks(run_simulate(cfg, device=a.device))
+    _histogram(cfg, grouped, labels)
 
 
 def cmd_simulat2(a):
@@ -167,8 +200,9 @@ def cmd_simulat2(a):
     elif a.runType == 1:
         run_simulat2_sweep(cfg, device=a.device)
     else:
-        summarize_outputs(cfg.out_folder, _output_ids(cfg.out_folder))
-        _no_histogram(cfg)
+        grouped, labels = summarize_outputs(cfg.out_folder,
+                                            _output_ids(cfg.out_folder))
+        _histogram(cfg, grouped, labels, xlabel="CaseSize")
 
 
 def cmd_downsampling(a):
@@ -181,9 +215,10 @@ def cmd_downsampling(a):
     elif a.runType == 1:
         run_downsampling_sweep(cfg, device=a.device)
     else:
-        summarize_outputs(cfg.out_folder,
-                          _output_ids(cfg.out_folder, a.mprefix or cfg.file_id))
-        _no_histogram(cfg)
+        grouped, labels = summarize_outputs(
+            cfg.out_folder,
+            _output_ids(cfg.out_folder, a.mprefix or cfg.file_id))
+        _histogram(cfg, grouped, labels, xlabel="CaseSize")
 
 
 def cmd_annotate(a):
@@ -225,7 +260,7 @@ def build_parser():
     p.add_argument("--metricsFile", default="",
                    help="write per-stage timing/throughput JSON here")
     p.add_argument("--profileDir", default="",
-                   help="device trace dir (not ported: raises if set)")
+                   help="torch.profiler trace dir (one Chrome trace a rank)")
     p.add_argument("--n_devices", type=int, default=0,
                    help="shard each join's positions over this many CUDA "
                         "devices (0/1 = one device)")

@@ -20,9 +20,22 @@
 //  * One warp a read, blocks of WARPS warps (a ragged last block just has
 //    idle warps).  Thread t holds the LP consecutive band lanes
 //    k = t*LP .. t*LP+LP-1 in registers (LP = W/32 rounded up to a power
-//    of two; lanes k >= W are computed and dropped).  The k+1 neighbour
-//    of a lane is in the same thread except for the thread's last lane,
-//    which takes the next thread's first by one __shfl_down_sync.
+//    of two).  The k+1 neighbour of a lane is in the same thread except
+//    for the thread's last lane, which takes the next thread's first by
+//    one __shfl_down_sync.
+//  * Any W in [1, 1024].  Lanes k >= W are computed and dropped: they
+//    only feed lanes above them (the running max runs up the band), except
+//    through the k+1 neighbour of lane W-1, which must read the band's
+//    end.  Whole threads past W are cut off by the thread's edge test.
+//    When W is not a multiple of LP, one thread holds lanes on both sides
+//    of W (the RAGGED instantiation): it keeps H and F of its lanes past W
+//    at NEG in every row, so that lane W-1 reads NEG from its neighbour,
+//    as the reference's band edge gives, and leaves them out of the best
+//    cell.
+//  * The traceback rows have a pitch of P = W rounded up to a multiple of
+//    32 bytes ([B, M, P] u8; the wrapper returns the [..., :W] view).  A
+//    thread's LP bytes then never cross a row and its word store is
+//    aligned at any W; K2 copies these rows with 16-byte cp.async.
 //  * The exclusive running max of Hnoe - ge*k is a serial max over the
 //    thread's lanes, a 5-step shuffle scan of the thread totals, one
 //    shuffle to make it exclusive, and a max per lane: exact, since max
@@ -56,8 +69,9 @@
 //    shared memory after it.  No device-memory load sits in a row's
 //    chain, and any M and row alignment work (cp.async needs aligned
 //    16-byte rows, which M + W need not give).
-//  * Each thread stores its LP tb bytes of a row as one word: W coalesced
-//    bytes a row per warp into the [B, M, W] u8 layout that K2 reads.
+//  * Each thread stores its LP tb bytes of a row as one word: coalesced
+//    bytes a row per warp into the [B, M, P] u8 layout that K2 reads (the
+//    bytes of lanes past W land in the row's padding).
 //
 // Rounding: at NEG = -1e9 the spacing of f32 is 64, so NEG + go rounds back
 // to NEG; those values feed the extend bits at the band edges.  Every add
@@ -94,7 +108,7 @@ __device__ __forceinline__ void store_row(uint8_t* dst,
   }
 }
 
-template <int LP>
+template <int LP, bool RAGGED>
 __global__ void __launch_bounds__(32 * WARPS)
     banded_sw_kernel(const uint8_t* __restrict__ read,
                      const uint8_t* __restrict__ ref,
@@ -102,7 +116,8 @@ __global__ void __launch_bounds__(32 * WARPS)
                      uint8_t* __restrict__ tb, float* __restrict__ best_out,
                      int32_t* __restrict__ bi_out,
                      int32_t* __restrict__ bk_out, int bsz, int m, int w,
-                     float match, float mismatch, float go, float ge) {
+                     int pitch, float match, float mismatch, float go,
+                     float ge) {
   constexpr int REF_CHUNK = RC + 32 * LP;  // ref bytes a chunk's rows read
   // two rows a loop body while the registers allow it
   constexpr int ROW_UNROLL = LP <= 4 ? 2 : 1;
@@ -116,11 +131,15 @@ __global__ void __launch_bounds__(32 * WARPS)
   const int rw = m + w;
   const uint8_t* rd = read + (size_t)b * m;
   const uint8_t* rf = ref + (size_t)b * rw;
-  uint8_t* tbb = tb + (size_t)b * m * w;
+  uint8_t* tbb = tb + (size_t)b * m * pitch;
   const int len = lens[b];
   const int k0 = lane * LP;
-  const bool live = k0 < w;        // w is a multiple of LP: whole threads
+  const bool live = k0 < w;        // the thread holds a lane of the band
   const bool edge = k0 + LP >= w;  // last lane's k+1 is off the band
+  // RAGGED: the lanes of this thread past the band (k >= w)
+  bool past[LP];
+#pragma unroll
+  for (int j = 0; j < LP; ++j) past[j] = RAGGED && k0 + j >= w;
   // the two scores in registers (opaque to the compiler), so that a
   // substitution is one select and no constant-bank load sits in the row
   float match_r, mismatch_r;
@@ -133,7 +152,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   for (int j = 0; j < LP; ++j) {
     gek[j] = __fmul_rn(ge, (float)(k0 + j));
     e_base[j] = __fsub_rn(__fadd_rn(gek[j], go), ge);
-    h[j] = 0.f;
+    h[j] = past[j] ? NEGF : 0.f;
     f[j] = NEGF;
     bv[j] = 0.f;
     br[j] = 0;
@@ -196,7 +215,7 @@ __global__ void __launch_bounds__(32 * WARPS)
         br[j] = ip;
       }
     }
-    if (live && ip >= 0) store_row<LP>(tbb + (size_t)ip * w + k0, wd);
+    if (live && ip >= 0) store_row<LP>(tbb + (size_t)ip * pitch + k0, wd);
   };
 
   for (int i0 = 0; i0 < m; i0 += RC) {
@@ -253,6 +272,10 @@ __global__ void __launch_bounds__(32 * WARPS)
           h_cur = 0.f;
           f_cur = NEGF;
         }
+        if (past[j]) {  // RAGGED only: lane W-1 reads NEG at k+1
+          h_cur = NEGF;
+          f_cur = NEGF;
+        }
         h[j] = h_cur;
         f[j] = f_cur;
         p_hne[j] = hne[j];
@@ -273,6 +296,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   if (live) {
 #pragma unroll
     for (int j = 0; j < LP; ++j) {
+      if (past[j]) continue;
       if (bv[j] > v || (bv[j] == v && br[j] < row)) {
         v = bv[j];
         row = br[j];
@@ -300,44 +324,45 @@ __global__ void __launch_bounds__(32 * WARPS)
 
 template <int LP>
 int launch(const void* read, const void* ref, const void* lens, void* tb,
-           void* best, void* bi, void* bk, int bsz, int m, int w, float match,
-           float mismatch, float go, float ge, cudaStream_t stream) {
+           void* best, void* bi, void* bk, int bsz, int m, int w, int pitch,
+           float match, float mismatch, float go, float ge,
+           cudaStream_t stream) {
   const int blocks = (bsz + WARPS - 1) / WARPS;
-  banded_sw_kernel<LP><<<blocks, 32 * WARPS, 0, stream>>>(
-      (const uint8_t*)read, (const uint8_t*)ref, (const int32_t*)lens,
-      (uint8_t*)tb, (float*)best, (int32_t*)bi, (int32_t*)bk, bsz, m, w,
-      match, mismatch, go, ge);
+  if (w % LP)
+    banded_sw_kernel<LP, true><<<blocks, 32 * WARPS, 0, stream>>>(
+        (const uint8_t*)read, (const uint8_t*)ref, (const int32_t*)lens,
+        (uint8_t*)tb, (float*)best, (int32_t*)bi, (int32_t*)bk, bsz, m, w,
+        pitch, match, mismatch, go, ge);
+  else
+    banded_sw_kernel<LP, false><<<blocks, 32 * WARPS, 0, stream>>>(
+        (const uint8_t*)read, (const uint8_t*)ref, (const int32_t*)lens,
+        (uint8_t*)tb, (float*)best, (int32_t*)bi, (int32_t*)bk, bsz, m, w,
+        pitch, match, mismatch, go, ge);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// w: a multiple of 32 in [32, 1024] (the wrapper checks it)
+// w in [1, 1024]; pitch: tb's row stride in bytes, w rounded up to a
+// multiple of 32 (the wrapper checks both)
 extern "C" int nm_banded_sw(const void* read, const void* ref,
                             const void* lens, void* tb, void* best, void* bi,
-                            void* bk, int bsz, int m, int w, float match,
-                            float mismatch, float go, float ge,
+                            void* bk, int bsz, int m, int w, int pitch,
+                            float match, float mismatch, float go, float ge,
                             void* stream) {
   if (bsz <= 0 || m <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const int l = w / 32;  // band lanes a thread holds
-  if (l <= 1)
-    return launch<1>(read, ref, lens, tb, best, bi, bk, bsz, m, w, match,
-                     mismatch, go, ge, st);
-  if (l <= 2)
-    return launch<2>(read, ref, lens, tb, best, bi, bk, bsz, m, w, match,
-                     mismatch, go, ge, st);
-  if (l <= 4)
-    return launch<4>(read, ref, lens, tb, best, bi, bk, bsz, m, w, match,
-                     mismatch, go, ge, st);
-  if (l <= 8)
-    return launch<8>(read, ref, lens, tb, best, bi, bk, bsz, m, w, match,
-                     mismatch, go, ge, st);
-  if (l <= 16)
-    return launch<16>(read, ref, lens, tb, best, bi, bk, bsz, m, w, match,
-                      mismatch, go, ge, st);
-  return launch<32>(read, ref, lens, tb, best, bi, bk, bsz, m, w, match,
-                    mismatch, go, ge, st);
+  const int l = (w + 31) / 32;  // band lanes a thread must hold
+#define NM_LAUNCH(LP)                                                     \
+  return launch<LP>(read, ref, lens, tb, best, bi, bk, bsz, m, w, pitch, \
+                    match, mismatch, go, ge, st)
+  if (l <= 1) NM_LAUNCH(1);
+  if (l <= 2) NM_LAUNCH(2);
+  if (l <= 4) NM_LAUNCH(4);
+  if (l <= 8) NM_LAUNCH(8);
+  if (l <= 16) NM_LAUNCH(16);
+  NM_LAUNCH(32);
+#undef NM_LAUNCH
 }
 
 extern "C" const char* nm_error_string(int code) {

@@ -9,13 +9,16 @@ device mesh (parallel/sharded.py, kernel K7 for the neighbor stencil);
 under several processes (torch.distributed, parallel/dist.py) each rank
 ingests its file shard and the pools merge across ranks, or with
 ``merge_mode="sharded"`` each rank tests its own coordinate range
-(parallel/shardmerge.py).  Device traces (``profile_dir`` /
-NANOMOD_PROFILE_DIR) and plots are not ported and raise.
+(parallel/shardmerge.py).  ``make_plots`` draws the top sites
+(harness/plots.py, matplotlib; ImportError where it is missing), and
+``profile_dir`` / NANOMOD_PROFILE_DIR wraps the run in a torch.profiler
+trace (utils/observe.device_trace).
 """
 
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -23,8 +26,10 @@ import torch
 
 from nanomod_tpu_torch.accum.pools import PoolBuilder, PositionPools, join_pools
 from nanomod_tpu_torch.config import DetectConfig, OUTPUT_INFO
-from nanomod_tpu_torch.io.fast5 import iter_fast5_files
-from nanomod_tpu_torch.utils.observe import observer, report, stage
+from nanomod_tpu_torch.io import fast5 as fast5_io
+from nanomod_tpu_torch.io.fast5 import iter_fast5_files, read_corrected_events
+from nanomod_tpu_torch.utils.observe import (device_trace, observer, report,
+                                             stage)
 from nanomod_tpu_torch.device import resolve_device
 from nanomod_tpu_torch.rank.ranking import (SignTable, region_rank,
                                             sort_sites, top_sites)
@@ -64,14 +69,16 @@ def _read_passes_filters(rd, cfg: DetectConfig,
 def ingest_group(folder: str, cfg: DetectConfig,
                  files=None) -> Dict[Tuple[str, str], PositionPools]:
     """Walk a group folder, read corrected events with the native reader
-    (fast5_ingest.cpp), build position pools."""
+    (fast5_ingest.cpp), or with h5py when ``native_ingest`` is off (raises
+    where h5py is missing), build position pools.  ``files`` overrides
+    discovery (the multi-process ingest passes this rank's shard)."""
     from nanomod_tpu_torch.native.fast5_bind import read_corrected_batch
     from nanomod_tpu_torch.native import require
 
-    if not cfg.native_ingest:
-        raise NotImplementedError("detect needs native_ingest=True: the "
-                                  "h5py ingest is not ported")
-    require("fast5_ingest", "sort_core")
+    require("sort_core", *(("fast5_ingest",) if cfg.native_ingest else ()))
+    if not cfg.native_ingest and fast5_io.h5py is None:
+        raise RuntimeError("detect with native_ingest=False reads with "
+                           "h5py, which is not installed")
     start_end = None
     pos_filter = None
     if cfg.pos is not None and cfg.pos2 is None:
@@ -85,10 +92,11 @@ def ingest_group(folder: str, cfg: DetectConfig,
         files = list(iter_fast5_files(folder))
 
     with stage("ingest", unit="reads") as s:
-        reads = read_corrected_batch(files, nthreads=cfg.num_workers)
-        if reads is None:
-            raise RuntimeError("native library 'fast5_ingest' failed to "
-                               "build or load (needs g++ and zlib headers)")
+        if cfg.native_ingest:
+            reads = read_corrected_batch(files, nthreads=cfg.num_workers)
+        else:
+            with ThreadPoolExecutor(max_workers=cfg.num_workers) as ex:
+                reads = list(ex.map(read_corrected_events, files))
         s.add(sum(1 for r in reads if r is not None))
 
     with stage("accumulate", unit="reads") as s:
@@ -271,15 +279,29 @@ def save_sign_test(table: SignTable, cfg: DetectConfig) -> str:
     return path
 
 
+def _plot_top_sites(table, sites, pools1, pools2, cfg, rank, world):
+    """The reference's top-site plots (nanomod_tpu/detect.py:320-322).
+    Under several processes every rank holds the same merged pools; rank 0
+    draws the one PDF and the others wait for it."""
+    from nanomod_tpu_torch.harness.plots import plot_top_sites
+    from nanomod_tpu_torch.parallel import dist
+    if rank == 0:
+        plot_top_sites(table, sites, pools1, pools2, cfg)
+    if world > 1:
+        dist._multihost_gather(np.ones(1, np.int32))
+
+
 def run_detect(cfg: DetectConfig, device="cuda",
                backend: Optional[str] = None):
     """Full detect pipeline on ``device``: ingest both groups, test,
-    combine, save, rank.  Under several processes (parallel/dist.py) each
-    rank ingests its file shard and the pools merge across ranks, or, with
-    ``merge_mode="sharded"``, each rank tests its own coordinate range
-    (parallel/shardmerge.py).  Per-stage counters go to the global Observer
-    (reset per run); cfg.metrics_file also records the kernels' launch
-    counts (one file a rank under several processes, metrics_path).
+    combine, save, rank and, with ``make_plots``, plot.  Under several
+    processes (parallel/dist.py) each rank ingests its file shard and the
+    pools merge across ranks, or, with ``merge_mode="sharded"``, each rank
+    tests its own coordinate range (parallel/shardmerge.py).  Per-stage
+    counters go to the global Observer (reset per run); cfg.metrics_file
+    also records the kernels' launch counts (one file a rank under several
+    processes, metrics_path); cfg.profile_dir (or NANOMOD_PROFILE_DIR)
+    wraps the run in a torch.profiler trace of the host and the card.
     Returns (table, order, sites)."""
     import time
 
@@ -290,38 +312,37 @@ def run_detect(cfg: DetectConfig, device="cuda",
 
     if cfg.merge_mode not in ("union", "sharded"):
         raise ValueError(f"bad merge_mode {cfg.merge_mode!r}")
-    if cfg.profile_dir or os.environ.get("NANOMOD_PROFILE_DIR"):
-        raise NotImplementedError("device traces (profile_dir / "
-                                  "NANOMOD_PROFILE_DIR) are not ported")
-    if cfg.make_plots:
-        raise NotImplementedError("plots are not ported (make_plots=False)")
     device = resolve_device(device)
     nanomod_tpu_torch.tune_malloc()
     observer().reset()
     start = time.time()
     rank, world = dist.process_info()
-    if world > 1 and cfg.merge_mode == "sharded":
-        from nanomod_tpu_torch.parallel.shardmerge import (
-            distributed_detect_sharded)
-        table, order, sites = distributed_detect_sharded(
-            cfg, device=device, backend=backend)
-    else:
-        if world > 1:
-            table, order = dist.distributed_ingest_detect(
+    with device_trace(cfg.profile_dir, device):
+        if world > 1 and cfg.merge_mode == "sharded":
+            from nanomod_tpu_torch.parallel.shardmerge import (
+                distributed_detect_sharded)
+            table, order, sites = distributed_detect_sharded(
                 cfg, device=device, backend=backend)
         else:
-            pools1 = ingest_group(cfg.wrk_base1, cfg)
-            pools2 = ingest_group(cfg.wrk_base2, cfg)
+            if world > 1:
+                pools1 = dist.ingest_group_multihost(cfg.wrk_base1, cfg)
+                pools2 = dist.ingest_group_multihost(cfg.wrk_base2, cfg)
+            else:
+                pools1 = ingest_group(cfg.wrk_base1, cfg)
+                pools2 = ingest_group(cfg.wrk_base2, cfg)
             table, order = detect_from_pools(pools1, pools2, cfg,
                                              device=device, backend=backend)
-        if cfg.save_test:
-            with stage("save", unit="positions") as s:
-                save_sign_test(table, cfg)
-                s.add(len(table))
-        sites = top_sites(table, order, cfg.stats, cfg.rank,
-                          top_n=cfg.rank.top_n)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+            if cfg.save_test:
+                with stage("save", unit="positions") as s:
+                    save_sign_test(table, cfg)
+                    s.add(len(table))
+            sites = top_sites(table, order, cfg.stats, cfg.rank,
+                              top_n=cfg.rank.top_n)
+            if cfg.make_plots:
+                _plot_top_sites(table, sites, pools1, pools2, cfg, rank,
+                                world)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     report(cfg.out_level)
     if cfg.metrics_file:
         write_metrics(metrics_path(cfg.metrics_file, rank, world), device,

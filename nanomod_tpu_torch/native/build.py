@@ -2,7 +2,8 @@
 
 The port runs its host code in C++: ``nanomod_tpu_torch/native/<name>.cpp``
 (copies of the reference's sources, held byte-equal to them by
-tests/test_torch_standalone.py), bound with ctypes by the ``*_bind``
+tests/test_torch_standalone.py, and the port's own fast5_probe.cpp, which
+includes fast5_ingest.cpp), bound with ctypes by the ``*_bind``
 modules beside them.  ``load_native`` builds each library with g++ once,
 under an inter-process lock (``fcntl.flock`` on a file in
 ``nanomod_tpu_torch/_build/``), into a temporary file that ``os.replace``
@@ -32,6 +33,7 @@ LOCK_PATH = os.path.join(BUILD_DIR, "native.lock")
 _EXTRA_FLAGS = {
     "annotate_core": ["-pthread"],
     "fast5_ingest": ["-lz", "-pthread"],
+    "fast5_probe": ["-lz", "-pthread"],
     "fast5_write": ["-lz", "-pthread"],
     "sort_core": ["-pthread"],
     "traceback": ["-pthread"],
@@ -45,6 +47,8 @@ _OPTIONAL_FLAGS = {
                     ["-DNO_LIBDEFLATE"]],
     "fast5_ingest": [["-l:libdeflate.so.0"], ["-ldeflate"],
                      ["-DNO_LIBDEFLATE"]],
+    "fast5_probe": [["-l:libdeflate.so.0"], ["-ldeflate"],
+                    ["-DNO_LIBDEFLATE"]],
 }
 
 _LOCK = threading.Lock()

@@ -268,15 +268,3 @@ def ingest_group_multihost(folder: str, cfg):
                            files=files)
     return merge_pools_across_hosts(partial,
                                     max_capacity=cfg.pool_capacity)
-
-
-def distributed_ingest_detect(cfg, device="cuda", backend=None):
-    """Rank-sharded ingest, pools merged across ranks, then the standard
-    detection path on this rank's ``device`` (identical on every rank).
-    run_detect routes here when the world size is above 1."""
-    from nanomod_tpu_torch.detect import detect_from_pools
-
-    pools1 = ingest_group_multihost(cfg.wrk_base1, cfg)
-    pools2 = ingest_group_multihost(cfg.wrk_base2, cfg)
-    return detect_from_pools(pools1, pools2, cfg, device=device,
-                             backend=backend)

@@ -1,6 +1,6 @@
 # Port of nanomod_tpu/parallel/shardmerge.py: the collectives run over
 # torch.distributed (gloo) instead of jax.distributed (torch_alltoall in
-# place of jax_alltoall); the plots under the sharded merge are not ported.
+# place of jax_alltoall).
 """Position-sharded multi-host detect: observations travel ONCE.
 
 The bootstrap multi-host merge (parallel/dist.merge_pools_across_hosts)
@@ -439,6 +439,47 @@ def _global_region_sites(full_table, trimmed_table, plan: ShardPlan, cfg,
     return sites
 
 
+def _sharded_plots(full_table, sites, own1, own2, plan: ShardPlan, cfg,
+                   gather, pid: int):
+    """Top-site plots under the sharded merge (the union path draws them
+    from full pools, ref myDetect.py:257-299): the host OWNING each site's
+    coordinate collects that site's ±window signal/p-value payload from its
+    halo-padded pools, payloads gather to rank 0, rank 0 renders the
+    single reference-named PDF."""
+    import pickle
+
+    from nanomod_tpu_torch.harness.plots import (collect_site_window,
+                                                 render_site_pages)
+
+    gid = {key: i for i, key in enumerate(plan.keys)}
+    lo_own, hi_own = plan.own_range()
+    local = []
+    for site in sites[: cfg.rank.top_n]:
+        key = (site.chrom, site.strand)
+        if key not in gid:
+            continue
+        c = int(plan.coord(np.array([gid[key]]), np.array([site.pos]))[0])
+        if not (lo_own <= c < hi_own):
+            continue
+        sd = collect_site_window(full_table, site, own1, own2, cfg)
+        if sd is not None:
+            local.append(sd)
+    blob = np.frombuffer(pickle.dumps(local), dtype=np.uint8)
+    lens = np.asarray(gather(np.array([len(blob)], np.int64)))
+    blobs = np.asarray(gather(blob))
+    if pid == 0:
+        datas = []
+        off = 0
+        for n in lens:
+            if n:
+                datas.extend(pickle.loads(blobs[off: off + int(n)].tobytes()))
+            off += int(n)
+        os.makedirs(cfg.out_folder, exist_ok=True)
+        path = os.path.join(cfg.out_folder, f"rplot_{cfg.file_id}.pdf")
+        render_site_pages(path, datas, cfg)
+    gather(np.ones(1, np.int32))        # plot visible before returning
+
+
 def distributed_detect_sharded(cfg, gather=None, alltoall=None,
                                process_count: Optional[int] = None,
                                process_index: Optional[int] = None,
@@ -452,7 +493,6 @@ def distributed_detect_sharded(cfg, gather=None, alltoall=None,
     Returns (local trimmed table, local order, GLOBAL top sites).
     `gather`/`alltoall`/process_* are injectable for tests (thread fakes);
     ``device`` and ``backend`` are passed to detect_from_pools.
-    Plots (make_plots) are not ported and raise.
     """
     from nanomod_tpu_torch.accum.pools import join_pools
     from nanomod_tpu_torch.config import replace
@@ -463,8 +503,6 @@ def distributed_detect_sharded(cfg, gather=None, alltoall=None,
     from nanomod_tpu_torch.rank.ranking import sort_sites
     from nanomod_tpu_torch.utils.observe import stage
 
-    if cfg.make_plots:
-        raise NotImplementedError("plots are not ported (make_plots=False)")
     rank, size = process_info()
     pc = size if process_count is None else process_count
     pid = rank if process_index is None else process_index
@@ -482,6 +520,9 @@ def distributed_detect_sharded(cfg, gather=None, alltoall=None,
         # windows of half-width window+1 centered on owned coordinates, and
         # every member row needs its own ±nb combination neighbors valid
         halo = max(halo, cfg.rank.window + 1 + int(cfg.stats.neighbor_pvalues))
+    if cfg.make_plots:
+        # plot pages span ±window around owned sites, with ranking p-values
+        halo = max(halo, cfg.rank.window + int(cfg.stats.neighbor_pvalues))
     plan = plan_position_shards(partials, halo, gather=gather,
                                 process_count=pc, process_index=pid)
     with stage("exchange", unit="observations") as s:
@@ -543,6 +584,8 @@ def distributed_detect_sharded(cfg, gather=None, alltoall=None,
         sites = _global_region_sites(full_table, table, plan, cfg, gather)
     else:
         sites = _global_top_sites(table, order, plan, cfg, gather)
+    if cfg.make_plots:
+        _sharded_plots(full_table, sites, own1, own2, plan, cfg, gather, pid)
     return table, order, sites
 
 

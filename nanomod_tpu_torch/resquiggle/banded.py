@@ -9,6 +9,9 @@ device of their tensors:
   * ``walk_packed`` CPU -> ``walk_packed_plain`` (``pack_codes2`` of the
                     plain walk ``walk_device_plain``); CUDA -> kernel K2
                     (csrc/walk.cu), which packs the codes itself
+  * ``walk_codes``  the same walk, one code a byte, for a step count 2M+W
+                    that is not a multiple of 4: CPU -> ``walk_device_plain``;
+                    CUDA -> kernel K2 in its unpacked mode
 
 ``pack_tb``, ``pack_outputs`` and ``pack_codes2`` are byte reshuffles in
 plain PyTorch on either device.  The host decoders (``unpack_outputs``,
@@ -192,37 +195,67 @@ def walk_packed_plain(tb, best_i, best_k):
     return pack_codes2(walk_device_plain(tb, best_i, best_k))
 
 
-def walk_packed_cuda(tb, best_i, best_k):
-    """Kernel K2 (csrc/walk.cu) on CUDA tensors: what walk_packed_plain
-    gives, one warp a read, without the [B, 2M+W] code array."""
+def _pitched(tb):
+    """(tb, pitch) as K2 reads it: rows of ``pitch`` bytes, a multiple of
+    16 in [W, 1024], at a 16-byte aligned address.  K1's output (a
+    [..., :W] view of rows padded to tb_pitch(W)) already is; any other tb
+    is copied into such rows."""
+    from nanomod_tpu_torch.resquiggle.banded_kernel import MAX_W, tb_pitch
+    bsz, m, w = tb.shape
+    s0, s1, s2 = tb.stride()
+    if (s2 == 1 and s1 % 16 == 0 and w <= s1 <= MAX_W and s0 == m * s1
+            and tb.data_ptr() % 16 == 0):
+        return tb, s1
+    pitch = tb_pitch(w)
+    rows = torch.zeros((bsz, m, pitch), dtype=torch.uint8, device=tb.device)
+    rows[..., :w] = tb
+    return rows, pitch
+
+
+def _walk_cuda(tb, best_i, best_k, packed: bool):
+    """Kernel K2 (csrc/walk.cu) on CUDA tensors: the walk's codes, four a
+    byte when ``packed``, else one a byte."""
+    from nanomod_tpu_torch.resquiggle.banded_kernel import MAX_W
     dev = tb.device
     if dev.type != "cuda":
-        raise ValueError(f"walk_packed_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"the walk kernel needs CUDA tensors, got {dev}")
     if tb.dtype != torch.uint8 or tb.dim() != 3:
         raise ValueError(f"tb must be [B, M, W] uint8, got {tb.dtype} "
                          f"{tuple(tb.shape)}")
     bsz, m, w = tb.shape
-    if w <= 0 or w % 32 or w > 1024:
-        raise ValueError(f"band width {w} must be a multiple of 32 in "
-                         f"[32, 1024]")
-    if (2 * m + w) % 4:
-        raise ValueError(f"2M+W = {2 * m + w} steps do not pack four a byte")
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"band width {w} must be in [1, {MAX_W}]")
+    steps = 2 * m + w
+    if packed and steps % 4:
+        raise ValueError(f"2M+W = {steps} steps do not pack four a byte")
     if best_i.shape != (bsz,) or best_k.shape != (bsz,):
         raise ValueError("best_i/best_k must be [B]")
     for x in (best_i, best_k):
         if x.device != dev or x.dtype != torch.int32:
             raise ValueError("best_i/best_k must be int32 on tb's device")
-    tb = tb.contiguous()
-    if tb.data_ptr() % 16:          # the kernel copies 16-byte pieces
-        tb = tb.clone()
+    rows, pitch = _pitched(tb)
     bi = best_i.contiguous()
     bk = best_k.contiguous()
-    codes = torch.empty((bsz, (2 * m + w) // 4), dtype=torch.uint8,
-                        device=dev)
-    kbuild.launch("walk", "nm_walk_packed", dev, tb.data_ptr(),
-                  bi.data_ptr(), bk.data_ptr(), codes.data_ptr(), bsz, m, w)
+    codes = torch.empty((bsz, steps // 4 if packed else steps),
+                        dtype=torch.uint8, device=dev)
+    kbuild.launch("walk", "nm_walk", dev, rows.data_ptr(), bi.data_ptr(),
+                  bk.data_ptr(), codes.data_ptr(), bsz, m, w, pitch,
+                  int(packed))
     kbuild.LAUNCHES["walk"] += 1
     return codes
+
+
+def walk_packed_cuda(tb, best_i, best_k):
+    """Kernel K2 on CUDA tensors: what walk_packed_plain gives, one warp a
+    read, without the [B, 2M+W] code array.  2M+W must be a multiple of
+    4."""
+    return _walk_cuda(tb, best_i, best_k, packed=True)
+
+
+def walk_codes_cuda(tb, best_i, best_k):
+    """Kernel K2 on CUDA tensors, one code a byte: what walk_device_plain
+    gives, for any 2M+W (the reference's mode "codes")."""
+    return _walk_cuda(tb, best_i, best_k, packed=False)
 
 
 def walk_packed(tb, best_i, best_k):
@@ -232,6 +265,15 @@ def walk_packed(tb, best_i, best_k):
     if tb.device.type == "cpu":
         return walk_packed_plain(tb, best_i, best_k)
     return walk_packed_cuda(tb, best_i, best_k)
+
+
+def walk_codes(tb, best_i, best_k):
+    """Unpacked traceback walk on the device of ``tb``: walk_device_plain
+    for CPU tensors, kernel K2 for CUDA tensors (raises if it cannot
+    launch)."""
+    if tb.device.type == "cpu":
+        return walk_device_plain(tb, best_i, best_k)
+    return walk_codes_cuda(tb, best_i, best_k)
 
 
 def pack_codes2(codes):

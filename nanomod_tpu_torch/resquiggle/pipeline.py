@@ -12,11 +12,12 @@ native code declines, and where it is missing such a file raises.
 Differences from the reference: host-to-device copies go from pinned memory
 with ``non_blocking=True``; the packed result comes back by a non-blocking
 copy into pinned memory behind a ``torch.cuda.Event`` that
-``fetch_outputs`` waits on; the device-walk path (``use_device_walk``,
-the walk's codes packed four a byte, mode "codes2") is the only alignment
-path; the external aligners raise NotImplementedError.  ``n_devices > 1``
-deals the DP sub-batches round-robin over the first min(n_devices,
-device_count) CUDA devices; under several processes (torch.distributed,
+``fetch_outputs`` waits on; the device-walk path (``use_device_walk``:
+the walk's codes packed four a byte, mode "codes2", when the step count
+2M + W is a multiple of 4, else one a byte, mode "codes") is the only
+alignment path; the external aligners raise NotImplementedError.
+``n_devices > 1`` deals the DP sub-batches round-robin over the first
+min(n_devices, device_count) CUDA devices; under several processes (torch.distributed,
 parallel/dist.py) each rank annotates its round-robin file shard and every
 rank prints the merged statistics.
 """
@@ -77,18 +78,14 @@ def _length_bucket(m: int, buckets=(256, 512, 1024, 2048, 4096, 8192, 16384)) ->
 
 
 def _check_supported(cfg: AnnotateConfig, device):
-    """Raise for the reference options this port does not run.  The band
-    width: the walk packs its 2M + W codes four a byte (the buckets make
-    2M a multiple of 4), and K1 and K2 take W lanes 32 to a warp."""
+    """Raise for the reference options this port does not run: a band
+    width above 1024 on the card (K1 and K2 hold at most 32 band lanes a
+    thread), the external aligners and the non-native paths."""
+    from nanomod_tpu_torch.resquiggle.banded_kernel import MAX_W
     w = cfg.band_width
-    if torch.device(device).type == "cuda":
-        if w % 32 or not 32 <= w <= 1024:
-            raise NotImplementedError(
-                f"band_width={w}: the CUDA kernels take a multiple of 32 "
-                f"in [32, 1024]")
-    elif w % 4 or w < 4:
+    if torch.device(device).type == "cuda" and w > MAX_W:
         raise NotImplementedError(
-            f"band_width={w}: the packed walk takes a multiple of 4")
+            f"band_width={w}: the CUDA kernels take at most {MAX_W}")
     if cfg.align != "dp":
         raise NotImplementedError(
             f"align={cfg.align!r}: external aligners are not ported")
@@ -227,9 +224,10 @@ class DPBatch:
     reads: List[PreparedRead]
     host: torch.Tensor          # [B, 12 + .] uint8 (banded.pack_outputs)
     event: Optional[object]     # torch.cuda.Event, None on the CPU
-    tail_shape: tuple           # per-read packed code shape
+    tail_shape: tuple           # per-read code shape
     lens: np.ndarray
     win_starts: np.ndarray
+    packed: bool                # codes four a byte (mode "codes2")
 
 
 def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
@@ -267,7 +265,10 @@ def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
         match=cfg.match_score, mismatch=cfg.mismatch_score,
         go=cfg.gap_open, ge=cfg.gap_extend,
     )
-    codes = banded.walk_packed(tb, bi, bk)    # the buckets give 4 | 2M+W
+    # the buckets make 2M a multiple of 4: the band width decides the mode
+    packed_codes = (2 * m + w) % 4 == 0
+    walk = banded.walk_packed if packed_codes else banded.walk_codes
+    codes = walk(tb, bi, bk)
     packed = banded.pack_outputs(codes, best, bi, bk)
     event = None
     host = packed
@@ -277,7 +278,7 @@ def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(device))
     return DPBatch(reads, host, event, tuple(codes.shape[1:]), lens,
-                   win_starts)
+                   win_starts, packed_codes)
 
 
 def fetch_outputs(batch: DPBatch):
@@ -298,7 +299,7 @@ def finish_alignment(batch: DPBatch, cfg: AnnotateConfig):
     n = len(batch.reads)
     ops_all = banded.decode_walk_native(
         codes[:n], bi[:n], bk[:n], nthreads=_host_workers(cfg, cap=8),
-        packed=True)
+        packed=batch.packed)
     out = []
     for i in range(n):
         if best[i] < _min_score(cfg, int(batch.lens[i])):
@@ -446,7 +447,7 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
                 codes[:n], bi[:n], bk[:n], accept, dpb.win_starts[:n],
                 dpb.reads, fasta, cfg.min_num_signal,
                 cfg.resegment_signal_wind, cfg.more_signal_perc,
-                nthreads=workers, packed=True)
+                nthreads=workers, packed=dpb.packed)
             s.add(n)
         out = []
         for r, (payload, err) in zip(dpb.reads, res):
@@ -543,6 +544,21 @@ def _load_inputs(cfg: AnnotateConfig):
     return fasta, seed_index, kmer_model
 
 
+def already_corrected(paths: List[str], cfg: AnnotateConfig) -> List[bool]:
+    """Which files already hold the corrected group (Annotate --resume),
+    the reference's io/fast5.has_corrected_group: asked of the native
+    probe (native/fast5_probe.cpp), and of h5py for the files whose HDF5
+    the probe cannot parse (raises where h5py is missing)."""
+    from nanomod_tpu_torch.native.probe_bind import has_object_batch
+    flags = has_object_batch(
+        paths, f"{fast5_io.ANALYSES}/{fast5_io.CORRECTED_GROUP}",
+        nthreads=_host_workers(cfg))
+    undecided = [p for p, f in zip(paths, flags) if f < 0]
+    _h5py_required(undecided, "--resume on FAST5 the native probe declined")
+    return [bool(f > 0) or (f < 0 and fast5_io.has_corrected_group(p))
+            for p, f in zip(paths, flags)]
+
+
 def annotate_files(paths: List[str], cfg: AnnotateConfig, device="cuda"):
     """Annotate a batch of FAST5s in place on ``device``.
 
@@ -587,10 +603,9 @@ def annotate_folder(cfg: AnnotateConfig, device="cuda"):
     else:
         print(f"Total f5={len(paths)}")
     if cfg.resume:
-        _h5py_required(paths, "--resume")
-        from nanomod_tpu_torch.io.fast5 import has_corrected_group
         n_before = len(paths)
-        paths = [p for p in paths if not has_corrected_group(p)]
+        done_mask = already_corrected(paths, cfg)
+        paths = [p for p, d in zip(paths, done_mask) if not d]
         print(f"Resume: {n_before - len(paths)} already annotated, "
               f"{len(paths)} to do")
     fasta, seed_index, kmer_model = _load_inputs(cfg)

@@ -1,5 +1,5 @@
-# Copied from nanomod_tpu/utils/observe.py; differs in the imports and has
-# no device_trace (it wraps jax.profiler).
+# Copied from nanomod_tpu/utils/observe.py; differs in the imports and in
+# device_trace, which wraps torch.profiler instead of jax.profiler.
 """Tracing, per-stage throughput counters and gated logging.
 
 The reference's observability is ad-hoc ``time.time()`` deltas printed
@@ -7,7 +7,9 @@ behind ``outLevel`` gates (ref bin/scripts/myDetect.py:426-440,455-518;
 bin/scripts/myRefBaseSignalAnnotation.py:362-389,482-490) plus per-1000-file
 progress snapshots (ref myDetect.py:605-623).  Here the same signals are
 first-class: every pipeline stage records wall time and item counts into an
-``Observer``, reports are structured (one line per stage with throughput).
+``Observer``, reports are structured (one line per stage with throughput),
+and the whole run can be wrapped in a ``torch.profiler`` trace of the host
+and the card for Perfetto / chrome://tracing / TensorBoard inspection.
 
 Usage::
 
@@ -16,6 +18,9 @@ Usage::
         s.add(n_reads)
     report(out_level)                      # gated human-readable summary
     observer().to_json("metrics.json")     # machine-readable metrics
+
+    with device_trace("/tmp/trace", device):   # or NANOMOD_PROFILE_DIR=...
+        run_detect(cfg, device)
 """
 
 from __future__ import annotations
@@ -152,6 +157,35 @@ def stage(name: str, unit: str = "items"):
 
 def report(out_level: int = OUTPUT_INFO):
     return _global.report(out_level)
+
+
+@contextlib.contextmanager
+def device_trace(out_dir: Optional[str] = None, device=None):
+    """torch.profiler trace around a block.
+
+    Active when `out_dir` is given or NANOMOD_PROFILE_DIR is set; otherwise
+    a no-op.  Records the host's activity always and the card's (kernels,
+    copies) when `device` is a CUDA device, and writes one Chrome trace a
+    process, ``trace.rank<r>.json`` in `out_dir` (r is the
+    torch.distributed rank, 0 without a process group).  The block should
+    end by synchronizing the card, so that its last kernels are in the
+    trace."""
+    out_dir = out_dir or os.environ.get("NANOMOD_PROFILE_DIR")
+    if not out_dir:
+        yield
+        return
+    import torch
+    import torch.distributed as tdist
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    rank = tdist.get_rank() if tdist.is_initialized() else 0
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(out_dir, f"trace.rank{rank}.json"))
 
 
 def vlog(cfg_level: int, level: int, msg: str):

@@ -65,12 +65,16 @@ def _k1_k2_equal(dev, read, ref, lens, **score):
     want = banded.banded_sw_plain(read, ref, lens, **score)
     for a, c in zip(got, want):
         assert torch.equal(a, c)
-    packed = banded.walk_packed(got[0], got[2], got[3])
-    assert torch.equal(packed,
-                       banded.walk_packed_plain(got[0], got[2], got[3]))
+    codes = banded.walk_device_plain(got[0], got[2], got[3])
+    walks = 1
+    if codes.shape[1] % 4 == 0:
+        assert torch.equal(banded.walk_packed(got[0], got[2], got[3]),
+                           banded.pack_codes2(codes))
+        walks += 1
+    assert torch.equal(banded.walk_codes(got[0], got[2], got[3]), codes)
     after = kbuild.launch_counts()
     assert after["banded_sw"] == before["banded_sw"] + 1
-    assert after["walk"] == before["walk"] + 1
+    assert after["walk"] == before["walk"] + walks
     return got
 
 
@@ -82,6 +86,19 @@ def test_k1_k2_match_plain(dev, b, m, w):
     rng = np.random.default_rng(b * m + w)
     _k1_k2_equal(dev, *_reads(rng, b, m, w), match=2, mismatch=-4, go=-6,
                  ge=-1)
+
+
+@pytest.mark.parametrize("w", [1, 4, 31, 33, 100, 130, 1000])
+@pytest.mark.parametrize("m", [256, 300])
+def test_k1_k2_off_grid_widths_match_plain(dev, w, m):
+    """Band widths off the grid of 32 (K1's ragged last thread, rows padded
+    to a multiple of 32 bytes) and of 4 (the walk's unpacked codes); a
+    compact copy of the traceback walks alike (the wrapper pads it)."""
+    rng = np.random.default_rng(7 * w + m)
+    got = _k1_k2_equal(dev, *_reads(rng, 13, m, w))
+    tbm, _, bi, bk = got
+    assert torch.equal(banded.walk_codes(tbm.contiguous(), bi, bk),
+                       banded.walk_device_plain(tbm, bi, bk))
 
 
 @pytest.mark.parametrize("w", [32, 128])
@@ -116,11 +133,16 @@ def test_k2_start_outside_the_matrix(dev):
 
 
 def test_k1_rejects_bad_band(dev):
+    """Above 1024 band lanes (32 a thread) K1 raises; the walk too."""
     read = torch.zeros((2, 64), dtype=torch.uint8, device=dev)
-    ref = torch.zeros((2, 64 + 48), dtype=torch.uint8, device=dev)
+    ref = torch.zeros((2, 64 + 2048), dtype=torch.uint8, device=dev)
     lens = torch.full((2,), 64, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="multiple of 32"):
+    with pytest.raises(ValueError, match=r"in \[1, 1024\]"):
         banded.banded_sw(read, ref, lens)
+    z = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=r"in \[1, 1024\]"):
+        banded.walk_codes(torch.zeros((2, 64, 2048), dtype=torch.uint8,
+                                      device=dev), z, z)
 
 
 @pytest.mark.parametrize("c1,c2,lo,hi,dtype", [

@@ -10,6 +10,7 @@ cpu`` must then write a ``_sign_test.txt`` byte-identical to
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -138,7 +139,7 @@ def test_prepare_and_alignment_match_jax(chain):
                 np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("kw", [dict(align="bwa"), dict(band_width=130),
+@pytest.mark.parametrize("kw", [dict(align="bwa"), dict(align="minimap2"),
                                 dict(use_native=False),
                                 dict(use_device_walk=False)])
 def test_annotate_unported_options_raise(chain, kw):
@@ -149,12 +150,14 @@ def test_annotate_unported_options_raise(chain, kw):
 
 
 @pytest.mark.parametrize("width,device,ok", [
-    (130, "cpu", False), (132, "cpu", True), (132, "cuda", False),
-    (96, "cuda", True), (2048, "cuda", False)])
+    (130, "cpu", True), (132, "cpu", True), (132, "cuda", True),
+    (96, "cuda", True), (2048, "cuda", False), (1, "cuda", True),
+    (1024, "cuda", True), (1025, "cuda", False), (2048, "cpu", True)])
 def test_annotate_band_width_checked(width, device, ok):
-    """The reference runs any band width; the port's packed walk takes a
-    multiple of 4, its CUDA kernels a multiple of 32 up to 1024.  The check
-    comes before any device work, so the CUDA cases run without a card."""
+    """The reference runs any band width; so does the port, but for a
+    width above 1024 on the card (K1 and K2 hold at most 32 band lanes a
+    thread).  The check comes before any device work, so the CUDA cases
+    run without a card."""
     from nanomod_tpu_torch.resquiggle.pipeline import _check_supported
     cfg = tcfg.AnnotateConfig(band_width=width)
     if ok:
@@ -164,19 +167,164 @@ def test_annotate_band_width_checked(width, device, ok):
             _check_supported(cfg, device)
 
 
+def _pdf_pages(path):
+    """Pages of a PDF (a copy of tests/test_shardmerge.py's)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return data.count(b"/Type /Page") - data.count(b"/Type /Pages")
+
+
+def _detect_kw(dirs, impl, out, **kw):
+    return dict(wrk_base1=dirs[impl, "ctrl"], wrk_base2=dirs[impl, "case"],
+                out_folder=out, min_lr=0, min_coverage=5, **kw)
+
+
 @pytest.mark.parametrize("kw", [dict(native_ingest=False),
                                 dict(make_plots=True, merge_mode="sharded"),
                                 dict(make_plots=True),
                                 dict(profile_dir="trace")])
-def test_detect_unported_options_raise(kw):
+def test_detect_unported_options_raise(chain, kw, tmp_path):
+    """The detect options that the port once refused now run, as the
+    reference's do: the sign-test table equals the one the port writes
+    without them, the plots (rplot_<FileID>.pdf) have as many pages as
+    the JAX package's, and the trace directory gets a Chrome trace that
+    holds the run's host events."""
     from nanomod_tpu_torch.detect import run_detect
-    with pytest.raises(NotImplementedError):
-        run_detect(tcfg.DetectConfig(**kw), device="cpu")
+    _, _, dirs = chain
+    rank = dict(rank=tcfg.RankConfig(window=3))
+    plain = str(tmp_path / "plain")
+    run_detect(tcfg.DetectConfig(**_detect_kw(dirs, "torch", plain, **rank)),
+               device="cpu")
+    if "profile_dir" in kw:
+        kw = dict(profile_dir=str(tmp_path / "trace"))
+    out = str(tmp_path / "out")
+    run_detect(tcfg.DetectConfig(**_detect_kw(dirs, "torch", out, **rank,
+                                              **kw)), device="cpu")
+    with open(os.path.join(plain, "mod_sign_test.txt"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(out, "mod_sign_test.txt"), "rb") as f:
+        assert f.read() == want
+    assert len(want) > 1000
+    if kw.get("make_plots"):
+        jax_out = str(tmp_path / "jax")
+        jax_run_detect(jcfg.DetectConfig(**_detect_kw(
+            dirs, "jax", jax_out, make_plots=True,
+            rank=jcfg.RankConfig(window=3))))
+        pages = _pdf_pages(os.path.join(jax_out, "rplot_mod.pdf"))
+        assert pages > 0
+        assert _pdf_pages(os.path.join(out, "rplot_mod.pdf")) == pages
+    else:
+        assert not os.path.exists(os.path.join(out, "rplot_mod.pdf"))
+    if "profile_dir" in kw:
+        with open(os.path.join(kw["profile_dir"], "trace.rank0.json")) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("ph") == "X" for e in events)
+
+
+def test_detect_plots_need_matplotlib(chain, tmp_path, monkeypatch):
+    """Where matplotlib is missing, a library call with make_plots raises
+    ImportError (the CLI checks first and prints a line instead)."""
+    from nanomod_tpu_torch.detect import run_detect
+    _, _, dirs = chain
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError):
+        run_detect(tcfg.DetectConfig(**_detect_kw(
+            dirs, "torch", str(tmp_path), make_plots=True,
+            rank=tcfg.RankConfig(window=3))), device="cpu")
+
+
+def test_collect_site_window_matches_jax(chain):
+    """The plot pages' data, site by site: the port's collect_site_window
+    dicts equal the reference's on the same corrected files."""
+    from nanomod_tpu.detect import detect_from_pools as jax_from_pools
+    from nanomod_tpu.detect import ingest_group as jax_ingest
+    from nanomod_tpu.harness.plots import collect_site_window as jax_collect
+    from nanomod_tpu.rank.ranking import top_sites as jax_top_sites
+    from nanomod_tpu_torch.detect import detect_from_pools, ingest_group
+    from nanomod_tpu_torch.harness.plots import collect_site_window
+    from nanomod_tpu_torch.rank.ranking import top_sites
+    _, _, dirs = chain
+    jc = jcfg.DetectConfig(**_detect_kw(dirs, "jax", "unused",
+                                        rank=jcfg.RankConfig(window=3)))
+    tc = tcfg.DetectConfig(**_detect_kw(dirs, "torch", "unused",
+                                        rank=tcfg.RankConfig(window=3)))
+    jp = [jax_ingest(d, jc) for d in (jc.wrk_base1, jc.wrk_base2)]
+    tp = [ingest_group(d, tc) for d in (tc.wrk_base1, tc.wrk_base2)]
+    jt, jo = jax_from_pools(*jp, jc)
+    tt, to = detect_from_pools(*tp, tc, device="cpu")
+    js = jax_top_sites(jt, jo, jc.stats, jc.rank, top_n=jc.rank.top_n)
+    ts = top_sites(tt, to, tc.stats, tc.rank, top_n=tc.rank.top_n)
+    assert len(ts) == len(js) > 0
+    for a, b in zip(ts, js):
+        got = collect_site_window(tt, a, *tp, tc)
+        want = jax_collect(jt, b, *jp, jc)
+        assert got.keys() == want.keys()
+        for key in ("rank", "chrom", "strand", "pos", "labels", "pvals"):
+            assert got[key] == want[key], key
+        for key in ("data1", "data2"):
+            assert len(got[key]) == len(want[key]) == 7
+            for x, y in zip(got[key], want[key]):
+                np.testing.assert_array_equal(x, y)
+
+
+def _drop_events(path):
+    """A corrected FAST5 without its Events dataset: the group is there,
+    the data the native reader needs is not."""
+    import h5py
+    with h5py.File(path, "r+") as f:
+        del f["Analyses/NanomoCorrected_000/BaseCalled_template/Events"]
+
+
+@pytest.mark.parametrize("kind", ["corrected", "raw", "group_no_events"])
+def test_resume_probe_matches_h5py(chain, kind, tmp_path):
+    """Annotate --resume's native probe gives has_corrected_group's (h5py)
+    answer on a file with the corrected group, one without it, and one
+    with the group but no Events dataset (where the native reader of
+    corrected events finds nothing to read)."""
+    from nanomod_tpu_torch.io.fast5 import has_corrected_group
+    from nanomod_tpu_torch.native.fast5_bind import read_corrected_batch
+    from nanomod_tpu_torch.resquiggle.pipeline import already_corrected
+    root, _, dirs = chain
+    src = dirs["torch", "case"] if kind != "raw" \
+        else os.path.join(root, "raw_case")
+    names = sorted(os.listdir(src))[:4]
+    paths = []
+    for name in names:
+        paths.append(str(tmp_path / name))
+        shutil.copyfile(os.path.join(src, name), paths[-1])
+        if kind == "group_no_events":
+            _drop_events(paths[-1])
+    want = [has_corrected_group(p) for p in paths]
+    assert want == [kind != "raw"] * len(paths)
+    assert already_corrected(paths, tcfg.AnnotateConfig()) == want
+    readable = [r is not None for r in read_corrected_batch(paths)]
+    assert readable == [kind == "corrected"] * len(paths)
+
+
+def test_cli_resume_skips_corrected_files(chain, capsys):
+    """``Annotate --resume 1`` over a folder that is already corrected has
+    nothing to do and leaves the files as they are."""
+    from nanomod_tpu_torch.io.fast5 import has_corrected_group
+    root, _, dirs = chain
+    folder = dirs["torch", "ctrl"]
+    before = {n: os.path.getmtime(os.path.join(folder, n))
+              for n in os.listdir(folder)}
+    capsys.readouterr()
+    torch_cli.main(["Annotate", "--wrkBase1", folder, "--Ref",
+                    os.path.join(root, "ref.fa"), "--resume", "1",
+                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    ok = sum(has_corrected_group(os.path.join(folder, n)) for n in before)
+    assert f"Resume: {ok} already annotated, {len(before) - ok} to do" in out
+    assert ok >= 10
+    assert {n: os.path.getmtime(os.path.join(folder, n))
+            for n in before} == before
 
 
 _NO_H5PY = r"""
 import sys
 sys.modules["h5py"] = None           # the card's machine has no h5py
+sys.modules["matplotlib"] = None     # and no matplotlib
 from nanomod_tpu_torch.cli import main
 main(sys.argv[1:])
 assert sys.modules["h5py"] is None and "jax" not in sys.modules
@@ -185,7 +333,8 @@ assert sys.modules["h5py"] is None and "jax" not in sys.modules
 
 def test_cli_chain_runs_without_h5py(tmp_path):
     """The committed smoke inputs go through Annotate and detect with h5py
-    unimportable, as on the card's machine."""
+    and matplotlib unimportable, as on the card's machine: detect writes
+    its table and says that it draws no plot."""
     import subprocess
     import sys
 
@@ -213,5 +362,7 @@ def test_cli_chain_runs_without_h5py(tmp_path):
               groups["case"], "--outFolder", str(tmp_path / "out"),
               "--min_lr", "0", "--MinCoverage", "2", "--device", "cpu")
     assert "Rank 1:" in out
+    assert "rplot_mod.pdf not drawn: matplotlib is not installed" in out
+    assert not (tmp_path / "out" / "rplot_mod.pdf").exists()
     with open(tmp_path / "out" / "mod_sign_test.txt") as f:
         assert len(f.read().splitlines()) > 500

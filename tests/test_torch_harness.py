@@ -185,6 +185,13 @@ def _subparser(parser, name):
                 if a.dest == "cmd").choices[name]
 
 
+def _assert_png(path):
+    with open(path, "rb") as f:
+        head = f.read(8)
+    assert head == b"\x89PNG\r\n\x1a\n", path
+    assert os.path.getsize(path) > 1000
+
+
 @pytest.mark.parametrize("name", _HARNESS_CMDS)
 def test_parser_mirrors_reference_harness_args(name):
     """Every option of the reference's subcommand, with its default, plus
@@ -220,8 +227,8 @@ def test_cli_harness_writes_reference_files(sim_data, name, capsys,
                                             monkeypatch):
     """The port's subcommand, and the JAX harness run on the config that
     the reference's CLI parses from the same arguments, write the same
-    files; where the reference draws a histogram, the port says that it
-    does not."""
+    files; where the reference draws a histogram (simulate), the port
+    draws it too."""
     root, chrom, _, _ = sim_data
     out_t = os.path.join(root, f"cli_{name}_torch")
     out_j = os.path.join(root, f"cli_{name}_jax")
@@ -247,10 +254,14 @@ def test_cli_harness_writes_reference_files(sim_data, name, capsys,
     capsys.readouterr()
     torch_cli.main(_cli_case(name, sim_data, out_t) + ["--device", "cpu"])
     # the reference draws hist_<FileID>.png for simulate (and runType 3)
-    said = "not drawn: plots are not ported" in capsys.readouterr().out
-    assert said == (name == "simulate")
+    assert "not drawn" not in capsys.readouterr().out
+    hist = [n for n in os.listdir(out_t) if n.endswith(".png")]
+    assert hist == (["hist_mod.png"] if name == "simulate" else [])
+    if hist:
+        _assert_png(os.path.join(out_t, hist[0]))
     names = sorted(os.listdir(out_j))
-    assert names == sorted(os.listdir(out_t))
+    assert names == sorted(n for n in os.listdir(out_t)
+                           if not n.endswith(".png"))
     assert sum(n.endswith(".output") for n in names) == 1
     for n in names:
         with open(os.path.join(out_j, n), "rb") as f:
@@ -263,16 +274,16 @@ def test_cli_harness_writes_reference_files(sim_data, name, capsys,
 @pytest.mark.parametrize("name", ["simulat2", "DownSampling"])
 def test_cli_runtype3_summarizes_and_says_no_histogram(tmp_path, name,
                                                         capsys):
-    """runType 3 merges the .output files of a sweep; where the reference
-    draws the histogram, the port prints that it does not."""
+    """runType 3 merges the .output files of a sweep and draws the
+    histogram of the merged ranks, as the reference does."""
     out = tmp_path / "out"
     out.mkdir()
     (out / "mod_20.output").write_text("20 1 3\n")
     (out / "mod_40.output").write_text("40 1\n")
     torch_cli.main([name, "--runType", "3", "--outFolder", str(out),
                     "--device", "cpu"])
-    assert "hist_mod.png not drawn: plots are not ported" in \
-        capsys.readouterr().out
+    assert "not drawn" not in capsys.readouterr().out
+    _assert_png(str(out / "hist_mod.png"))
     grouped, labels = tsim.summarize_outputs(str(out), ["mod_20", "mod_40"])
     assert grouped == jsim.summarize_outputs(str(out),
                                              ["mod_20", "mod_40"])[0]

@@ -4,10 +4,12 @@ torchrun sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT on
 127.0.0.1), run
 
   * detect, union merge: every rank's ``_sign_test.txt`` byte-equal to the
-    JAX package's single-process run;
+    JAX package's single-process run, rank 0's plots with the JAX
+    package's page count, one ``--profileDir`` trace a rank;
   * detect, position-sharded merge with the capped KS and the pool cap:
     the concatenated file byte-equal to the JAX package's single-process
-    run, the same global rank 1 on both ranks;
+    run, the same global rank 1 on both ranks, the plots gathered to rank
+    0 with the JAX package's page count;
   * Annotate: each rank corrects its file shard in place; every corrected
     FAST5 byte-equal to the JAX package's single-process Annotate, and
     both ranks report the merged ok count.
@@ -88,6 +90,13 @@ def _jax_detect(root, out, **kw):
     return run_detect(cfg)
 
 
+def _pdf_pages(path):
+    """Pages of a PDF (a copy of tests/test_shardmerge.py's)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return data.count(b"/Type /Page") - data.count(b"/Type /Pages")
+
+
 def _detect_args(root, out, *extra):
     return ["detect", "--wrkBase1", os.path.join(root, "control"),
             "--wrkBase2", os.path.join(root, "case"), "--outFolder", out,
@@ -96,13 +105,20 @@ def _detect_args(root, out, *extra):
 
 def test_two_process_union_detect_equals_jax(dataset):
     single = os.path.join(dataset, "jax_union")
-    _jax_detect(dataset, single)
+    _jax_detect(dataset, single, make_plots=True)
     want = _read(os.path.join(single, "mp_sign_test.txt"))
     assert len(want) > 1000
     out = os.path.join(dataset, "torch_union")
     metrics = os.path.join(dataset, "union.json")
-    _cli_ranks(_detect_args(dataset, out, "--metricsFile", metrics))
+    trace = os.path.join(dataset, "union_trace")
+    _cli_ranks(_detect_args(dataset, out, "--metricsFile", metrics,
+                            "--profileDir", trace))
     assert _read(os.path.join(out, "mp_sign_test.txt")) == want
+    pages = _pdf_pages(os.path.join(single, "rplot_mp.pdf"))
+    assert pages > 0
+    assert _pdf_pages(os.path.join(out, "rplot_mp.pdf")) == pages
+    assert sorted(os.listdir(trace)) == [f"trace.rank{r}.json"
+                                         for r in range(NPROC)]
     for rank in range(NPROC):
         with open(os.path.join(dataset, f"union.rank{rank}.json")) as f:
             m = json.load(f)
@@ -115,7 +131,7 @@ def test_two_process_sharded_detect_equals_jax(dataset):
     _, _, sites = _jax_detect(
         dataset, single, stats=jcfg.StatConfig(coverages=(12, 12),
                                                downsampling=10),
-        pool_capacity=16)
+        pool_capacity=16, make_plots=True)
     want = _read(os.path.join(single, "mp_sign_test.txt"))
     assert len(want) > 1000
     out = os.path.join(dataset, "torch_sharded")
@@ -124,6 +140,9 @@ def test_two_process_sharded_detect_equals_jax(dataset):
         "--downsampling", "10", "--pool_capacity", "16"))
     assert _read(os.path.join(out, "mp_sign_test.txt")) == want
     assert not [f for f in os.listdir(out) if "@shard" in f]
+    pages = _pdf_pages(os.path.join(single, "rplot_mp.pdf"))
+    assert pages > 0
+    assert _pdf_pages(os.path.join(out, "rplot_mp.pdf")) == pages
     top = f"Rank 1: {sites[0].chrom} {sites[0].strand} {sites[0].pos + 1}"
     for rank, text in enumerate(outs):
         assert top in text, f"rank {rank}: global rank 1 differs:\n{text}"

@@ -158,11 +158,25 @@ def test_sharded_region_rank_equals_jax(dataset, tmp_path, wind_ovlp):
         _read(os.path.join(single, "sm_sign_test.txt"))
 
 
+def _pdf_pages(path):
+    """Pages of a PDF (a copy of tests/test_shardmerge.py's)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return data.count(b"/Type /Page") - data.count(b"/Type /Pages")
+
+
 def test_sharded_detect_plots_raise(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="plots"):
-        shardmerge.distributed_detect_sharded(
-            _cfg(tcfg, dataset, str(tmp_path), make_plots=True),
-            process_count=1, process_index=0, device="cpu")
+    """make_plots under the sharded merge (once refused): the owners of
+    the top sites gather their window data to rank 0, which draws one
+    rplot_<FileID>.pdf with as many pages as the JAX package's
+    single-host run."""
+    single = str(tmp_path / "jax")
+    jax_run_detect(_cfg(jcfg, dataset, single, make_plots=True))
+    want = _pdf_pages(os.path.join(single, "rplot_sm.pdf"))
+    assert want > 0
+    out = str(tmp_path / "torch")
+    _sharded(dataset, out, 2, make_plots=True)
+    assert _pdf_pages(os.path.join(out, "rplot_sm.pdf")) == want
 
 
 def test_plan_refuses_a_small_coordinate_space():
