@@ -43,11 +43,17 @@ Phase 3  the main path through its entry points: ``python -m
          0, and the sign-test table must equal the one the native host
          battery gives on the same corrected files.  detect's plots:
          rplot_mod.pdf with pages where matplotlib imports, else the CLI's
-         "not drawn" line.  Then detect again with ``--profileDir``: the
-         same table, K3's kernels in the trace, and the device-busy share
-         of the whole run (the union of kernel and copy intervals over the
-         traced span); ``annotate_folder`` at band_width 130 on 256 of the
-         raw smoke reads, on the card and on the CPU: the walk in mode
+         "not drawn" line.  Then ``cli detect --profileDir`` at genome
+         scale, on two groups of corrected FAST5s written by the native
+         writer (make_corrected_group: reads of 8,000 events, 12 a
+         position and strand, on a 500,000-base genome: about 10^6
+         positions, phase 2's P; a planted shift of 3 sd at 8 '+'
+         positions): the planted site first, the table byte-equal to the
+         native host battery's, K3's kernels in the trace, and the
+         device-busy share of the whole run (the union of kernel and copy
+         intervals over the traced span); ``annotate_folder`` at
+         band_width 130 on 256 of the raw smoke reads, on the card and on
+         the CPU: the walk in mode
          "codes", K1 and K2 launched, every corrected FAST5 byte-equal;
          ``cli Annotate --resume 1 --device cuda`` over phase 3's
          corrected files: all already annotated, 0 to do, none rewritten.
@@ -235,6 +241,19 @@ TORCHRUN_TIMEOUT = 600
 # 4: the unpacked walk) and reads (16 smoke reads, 16 copies each)
 ANNOTATE_W = 130
 ANNOTATE_W_READS = 256
+# the traced detect at genome scale: a synthetic genome of TRACE_GENOME
+# positions, corrected reads of TRACE_READ_LEN events (a nanopore read's
+# length) at TRACE_COVERAGE reads a position, strand and group, so that
+# about 2 x TRACE_GENOME positions (phase 2's P) pass the coverage filter.
+# The case group's '+' strand is shifted by TRACE_SHIFT (its noise has sd
+# 1) at TRACE_SITE_LEN positions from TRACE_SITE: rank 1 must lie there.
+TRACE_GENOME = 500_000
+TRACE_READ_LEN = 8_000
+TRACE_COVERAGE = 12
+TRACE_SITE = 250_000
+TRACE_SITE_LEN = 8
+TRACE_SHIFT = 3.0
+TRACE_WRITE_BATCH = 256
 
 
 def log(*a):
@@ -495,8 +514,7 @@ def profile_run_battery(torch, battery, kernels, args, dev):
 def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
     """K1 and K2 against their plain versions on one batch (array-equal):
     the walk's codes one a byte and, where 2M+W is a multiple of 4, four a
-    byte.  Returns K1's outputs, K2's codes as the pipeline takes them
-    (packed where they pack) and the two max abs errors."""
+    byte.  Returns K1's outputs and the two max abs errors."""
     k_out = banded_sw_cuda(read, ref, lens)
     p_out = banded.banded_sw_plain(read, ref, lens)
     torch.cuda.synchronize()
@@ -505,23 +523,15 @@ def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
             raise AssertionError(f"K1 {name} differs from plain: {what}")
     tb, _, bi, bk = k_out
     codes = banded.walk_device_plain(tb, bi, bk)
-    pairs = [(banded.walk_codes_cuda(tb, bi, bk), codes)]
+    pairs = [(banded.walk(tb, bi, bk, packed=False)[0], codes)]
     if codes.shape[1] % 4 == 0:
-        pairs.append((banded.walk_packed_cuda(tb, bi, bk),
+        pairs.append((banded.walk(tb, bi, bk, packed=True)[0],
                       banded.pack_codes2(codes)))
     for (ck, cp), mode in zip(pairs, ("codes", "codes2")):
         if not torch.equal(ck, cp):
             raise AssertionError(f"K2 {mode} differ from plain: {what}")
-    return (k_out, pairs[-1][0], max_abs_err(torch, zip(k_out, p_out)),
+    return (k_out, max_abs_err(torch, zip(k_out, p_out)),
             max_abs_err(torch, pairs))
-
-
-def dp_walk(banded, tb):
-    """The walk the pipeline takes for this tb (kernel, plain): packed
-    when 2M+W is a multiple of 4, else one code a byte."""
-    if (2 * tb.shape[1] + tb.shape[2]) % 4 == 0:
-        return banded.walk_packed_cuda, banded.walk_packed_plain
-    return banded.walk_codes_cuda, banded.walk_device_plain
 
 
 def phase1(torch, dev):
@@ -537,16 +547,18 @@ def phase1(torch, dev):
         + [(MAIN_PATH_BUCKET, w) for w in DP_OFF_GRID_MAIN]
     for m, w in main:
         read, ref, lens = on_card(synth_reads(rng, DP_BATCH, m, w))
-        k_out, ck, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read,
-                                     ref, lens, f"M={m} W={w}")
+        k_out, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
+                                 lens, f"M={m} W={w}")
         tb, _, bi, bk = k_out
-        walk, walk_plain = dp_walk(banded, tb)
+        # the walk in the pipeline's mode
+        ck, packed = banded.walk(tb, bi, bk)
+        walk_plain = (banded.walk_packed_plain if packed
+                      else banded.walk_device_plain)
         k1 = lambda: banded_sw_cuda(read, ref, lens)  # noqa: E731
-        k2 = lambda: walk(tb, bi, bk)  # noqa: E731
+        k2 = lambda: banded.walk(tb, bi, bk)  # noqa: E731
         res = {
             "M": m, "B": DP_BATCH, "W": w,
-            "walk_mode": "codes2" if walk is banded.walk_packed_cuda
-            else "codes",
+            "walk_mode": "codes2" if packed else "codes",
             "k1_max_abs_err": e1, "k2_max_abs_err": e2,
             "k1_ms": time_ms(torch, k1),
             "k1_single_ms": time_ms(torch, k1, n=1),
@@ -592,19 +604,18 @@ def phase1(torch, dev):
     errs = {}
     for what, (arrays, w) in extra.items():
         read, ref, lens = on_card(arrays)
-        k_out, _, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
-                                    lens, what)
+        k_out, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
+                                 lens, what)
         best, bi, bk = (x.cpu().numpy() for x in k_out[1:])
         if what == "all_mismatch" and (best.any() or bi.any() or bk.any()):
             raise AssertionError("all-mismatch batch: best must be 0 at (0, 0)")
         tb = k_out[0]
-        walk, _ = dp_walk(banded, tb)
         errs[what] = {"k1_max_abs_err": e1, "k2_max_abs_err": e2,
                       "W": w, "B": len(best), "M": read.shape[1],
                       "max_best": float(best.max()),
                       "k1_ms": time_ms(torch, lambda: banded_sw_cuda(
                           read, ref, lens)),
-                      "k2_ms": time_ms(torch, lambda: walk(
+                      "k2_ms": time_ms(torch, lambda: banded.walk(
                           tb, k_out[2], k_out[3]))}
     log("phase1 extra", json.dumps(errs))
     out["extra"] = errs
@@ -920,32 +931,113 @@ def trace_busy_share(path):
             "k3_ms": sum(e["dur"] for e in k3) / 1e3}
 
 
-def phase3_traced_detect(tmp, groups):
-    """phase 3's detect once more with --profileDir: the table equal to
-    phase 3's, a trace holding K3's kernel events, and the device-busy
-    share of the whole detect run read off it."""
-    env = _env()
+def make_corrected_group(folder, seed, shift):
+    """A group folder of corrected FAST5s at genome scale, written by the
+    native writer into copies of a raw smoke read: reads of TRACE_READ_LEN
+    events at uniform starts on a random genome of TRACE_GENOME bases,
+    either strand, norm_mean ~ N(0, 1) plus ``shift`` at the planted '+'
+    sites, rounded to three decimals.  Returns (folder, reads,
+    seconds)."""
+    from nanomod_tpu_torch.io.fast5 import CORRECTED_EVENTS_DTYPE
+    from nanomod_tpu_torch.native.fast5_write_bind import (
+        write_corrected_batch_native)
+    t0 = time.perf_counter()
+    template = os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data", "ctrl",
+                            "raw_0000.fast5")
+    genome = np.frombuffer(b"ACGT", "S1")[
+        np.random.default_rng(0).integers(0, 4, TRACE_GENOME)]
+    rng = np.random.default_rng(seed)
+    n_reads = 2 * TRACE_GENOME * TRACE_COVERAGE // TRACE_READ_LEN
+    length = TRACE_READ_LEN
+    os.makedirs(folder)
+    for b0 in range(0, n_reads, TRACE_WRITE_BATCH):
+        paths, payloads = [], []
+        for r in range(b0, min(b0 + TRACE_WRITE_BATCH, n_reads)):
+            path = os.path.join(folder, f"read_{r:05d}.fast5")
+            shutil.copyfile(template, path)
+            start = int(rng.integers(0, TRACE_GENOME - length + 1))
+            strand = "+" if rng.random() < 0.5 else "-"
+            ev = np.zeros(length, CORRECTED_EVENTS_DTYPE)
+            mean = rng.normal(0.0, 1.0, length)
+            if strand == "+":
+                lo = max(TRACE_SITE - start, 0)
+                hi = min(TRACE_SITE + TRACE_SITE_LEN - start, length)
+                if hi > lo:
+                    mean[lo:hi] += shift
+            # three decimals, as Annotate writes them (resquiggle/annotate.py)
+            ev["norm_mean"] = np.round(mean, 3)
+            ev["start"] = 5 * np.arange(length)
+            ev["length"] = 5
+            bases = genome[start:start + length]
+            ev["base"] = bases if strand == "+" else bases[::-1]
+            paths.append(path)
+            payloads.append(dict(
+                chrom="synth", start=start, strand=strand, events=ev,
+                read_alignment=bases, genome_alignment=bases,
+                clipped_start=0, clipped_end=0, num_insertions=0,
+                num_deletions=0, num_matches=length, num_mismatches=0))
+        ok = write_corrected_batch_native(paths, payloads, nthreads=8)
+        if ok is None or not ok.all():
+            raise AssertionError("the native writer declined a synthetic "
+                                 "corrected read")
+    return folder, n_reads, time.perf_counter() - t0
+
+
+def phase3_traced_detect(tmp, dev):
+    """``cli detect --profileDir`` at genome scale (make_corrected_group:
+    about 2 x TRACE_GENOME positions, phase 2's P): the table byte-equal to
+    the native host battery's on the same files, the planted site first,
+    K3's kernels in the trace, and the device-busy share of the whole
+    detect run read off it."""
+    from nanomod_tpu_torch.config import DetectConfig, RankConfig
+    from nanomod_tpu_torch.detect import run_detect
+    groups, gen = {}, {}
+    for seed, (group, shift) in enumerate((("ctrl", 0.0),
+                                           ("case", TRACE_SHIFT)), 1):
+        groups[group], reads, gen[group] = make_corrected_group(
+            os.path.join(tmp, f"genome_{group}"), seed, shift)
     trace = os.path.join(tmp, "trace")
     out_dir = os.path.join(tmp, "out_trace")
     dfile = os.path.join(tmp, "detect_trace.json")
-    _cli(["detect", "--wrkBase1", groups["ctrl"], "--wrkBase2",
-          groups["case"], "--outFolder", out_dir, "--min_lr", "0",
-          "--device", "cuda", "--metricsFile", dfile, "--profileDir",
-          trace], env)
-    if _read_bytes(os.path.join(out_dir, "mod_sign_test.txt")) != \
-            _read_bytes(os.path.join(tmp, "out", "mod_sign_test.txt")):
-        raise AssertionError("the traced detect's table differs from "
-                             "phase 3's")
+    out = _cli(["detect", "--wrkBase1", groups["ctrl"], "--wrkBase2",
+                groups["case"], "--outFolder", out_dir, "--min_lr", "0",
+                "--device", "cuda", "--metricsFile", dfile, "--profileDir",
+                trace], _env())
+    rank1 = out.split("Rank 1:")[1].split("\n")[0].split()
+    log("phase3 traced detect Rank 1:", " ".join(rank1))
+    if rank1[1] != "+" or not (TRACE_SITE < int(rank1[2])
+                               <= TRACE_SITE + TRACE_SITE_LEN):
+        raise AssertionError(f"the planted sites {TRACE_SITE + 1}.."
+                             f"{TRACE_SITE + TRACE_SITE_LEN} (+) are not "
+                             f"ranked first: {rank1}")
+    host_dir = os.path.join(tmp, "host_trace")
+    t0 = time.perf_counter()
+    run_detect(DetectConfig(wrk_base1=groups["ctrl"],
+                            wrk_base2=groups["case"], out_folder=host_dir,
+                            min_lr=0, rank=RankConfig(window=10)),
+               device=dev, backend="host")
+    host_s = time.perf_counter() - t0
+    got = _read_bytes(os.path.join(out_dir, "mod_sign_test.txt"))
+    if got != _read_bytes(os.path.join(host_dir, "mod_sign_test.txt")):
+        raise AssertionError("the traced detect's table differs from the "
+                             "host battery's")
     res = trace_busy_share(os.path.join(trace, "trace.rank0.json"))
     if res["k3_events"] < 1:
         raise AssertionError("the detect trace holds no K3 kernel event")
     with open(dfile) as f:
         metrics = json.load(f)
-    res.update(seconds=metrics["seconds"],
+    if metrics["positions"] < 0.9 * 2 * TRACE_GENOME:
+        raise AssertionError(f"only {metrics['positions']} positions")
+    res.update(reads_per_group=reads, write_s=gen,
+               positions=metrics["positions"], seconds=metrics["seconds"],
+               host_backend_run_detect_s=host_s,
                launches=metrics["kernel_launches"],
+               stages={k: v["seconds"] for k, v in metrics["stages"].items()},
                trace_mb=os.path.getsize(os.path.join(
                    trace, "trace.rank0.json")) / 2 ** 20)
     log("phase3 detect trace", json.dumps(res))
+    for group in groups.values():
+        shutil.rmtree(group, ignore_errors=True)
     return res
 
 
@@ -1818,7 +1910,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="nanomod_smoke_")
     try:
         p3, groups = phase3(torch, dev, tmp)
-        p3["trace"] = phase3_traced_detect(tmp, groups)
+        p3["trace"] = phase3_traced_detect(tmp, dev)
         p3["band_width"] = phase3_band_width(torch, dev, tmp)
         p3["resume"] = phase3_resume(tmp, groups)
         p4 = phase4(torch, dev)

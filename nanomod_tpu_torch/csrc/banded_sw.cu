@@ -35,7 +35,13 @@
 //  * The traceback rows have a pitch of P = W rounded up to a multiple of
 //    32 bytes ([B, M, P] u8; the wrapper returns the [..., :W] view).  A
 //    thread's LP bytes then never cross a row and its word store is
-//    aligned at any W; K2 copies these rows with 16-byte cp.async.
+//    aligned at any W; K2 copies these rows with 16-byte cp.async.  On the
+//    grid of 32 (P = W, never RAGGED) the PITCHED = false instantiation
+//    addresses rows by W and takes the pitch as its last argument, unused:
+//    its code is the one K1 had before it took other widths.  An
+//    instantiation that read the pitch loaded it from the constant bank
+//    inside the row loop and ran 4.5 % slower at W = 128
+//    (kernels/sass_ab.py, PERF.md).
 //  * The exclusive running max of Hnoe - ge*k is a serial max over the
 //    thread's lanes, a 5-step shuffle scan of the thread totals, one
 //    shuffle to make it exclusive, and a max per lane: exact, since max
@@ -108,7 +114,7 @@ __device__ __forceinline__ void store_row(uint8_t* dst,
   }
 }
 
-template <int LP, bool RAGGED>
+template <int LP, bool RAGGED, bool PITCHED>
 __global__ void __launch_bounds__(32 * WARPS)
     banded_sw_kernel(const uint8_t* __restrict__ read,
                      const uint8_t* __restrict__ ref,
@@ -116,8 +122,8 @@ __global__ void __launch_bounds__(32 * WARPS)
                      uint8_t* __restrict__ tb, float* __restrict__ best_out,
                      int32_t* __restrict__ bi_out,
                      int32_t* __restrict__ bk_out, int bsz, int m, int w,
-                     int pitch, float match, float mismatch, float go,
-                     float ge) {
+                     float match, float mismatch, float go, float ge,
+                     int pitch) {
   constexpr int REF_CHUNK = RC + 32 * LP;  // ref bytes a chunk's rows read
   // two rows a loop body while the registers allow it
   constexpr int ROW_UNROLL = LP <= 4 ? 2 : 1;
@@ -131,7 +137,8 @@ __global__ void __launch_bounds__(32 * WARPS)
   const int rw = m + w;
   const uint8_t* rd = read + (size_t)b * m;
   const uint8_t* rf = ref + (size_t)b * rw;
-  uint8_t* tbb = tb + (size_t)b * m * pitch;
+  const int stride = PITCHED ? pitch : w;  // tb's row stride in bytes
+  uint8_t* tbb = tb + (size_t)b * m * stride;
   const int len = lens[b];
   const int k0 = lane * LP;
   const bool live = k0 < w;        // the thread holds a lane of the band
@@ -215,7 +222,7 @@ __global__ void __launch_bounds__(32 * WARPS)
         br[j] = ip;
       }
     }
-    if (live && ip >= 0) store_row<LP>(tbb + (size_t)ip * pitch + k0, wd);
+    if (live && ip >= 0) store_row<LP>(tbb + (size_t)ip * stride + k0, wd);
   };
 
   for (int i0 = 0; i0 < m; i0 += RC) {
@@ -322,23 +329,41 @@ __global__ void __launch_bounds__(32 * WARPS)
   }
 }
 
+template <int LP, bool RAGGED, bool PITCHED>
+int launch_one(const void* read, const void* ref, const void* lens, void* tb,
+               void* best, void* bi, void* bk, int bsz, int m, int w,
+               int pitch, float match, float mismatch, float go, float ge,
+               cudaStream_t stream) {
+  const int blocks = (bsz + WARPS - 1) / WARPS;
+  banded_sw_kernel<LP, RAGGED, PITCHED><<<blocks, 32 * WARPS, 0, stream>>>(
+      (const uint8_t*)read, (const uint8_t*)ref, (const int32_t*)lens,
+      (uint8_t*)tb, (float*)best, (int32_t*)bi, (int32_t*)bk, bsz, m, w,
+      match, mismatch, go, ge, pitch);
+  return (int)cudaGetLastError();
+}
+
+// on the grid of 32, w is a multiple of LP and pitch == w; off it, rows are
+// pitched and the last live thread is ragged where LP does not divide w
+// (always at LP = 32, never at LP = 1)
 template <int LP>
 int launch(const void* read, const void* ref, const void* lens, void* tb,
            void* best, void* bi, void* bk, int bsz, int m, int w, int pitch,
            float match, float mismatch, float go, float ge,
            cudaStream_t stream) {
-  const int blocks = (bsz + WARPS - 1) / WARPS;
-  if (w % LP)
-    banded_sw_kernel<LP, true><<<blocks, 32 * WARPS, 0, stream>>>(
-        (const uint8_t*)read, (const uint8_t*)ref, (const int32_t*)lens,
-        (uint8_t*)tb, (float*)best, (int32_t*)bi, (int32_t*)bk, bsz, m, w,
-        pitch, match, mismatch, go, ge);
-  else
-    banded_sw_kernel<LP, false><<<blocks, 32 * WARPS, 0, stream>>>(
-        (const uint8_t*)read, (const uint8_t*)ref, (const int32_t*)lens,
-        (uint8_t*)tb, (float*)best, (int32_t*)bi, (int32_t*)bk, bsz, m, w,
-        pitch, match, mismatch, go, ge);
-  return (int)cudaGetLastError();
+#define NM_ONE(RAGGED, PITCHED)                                            \
+  return launch_one<LP, RAGGED, PITCHED>(read, ref, lens, tb, best, bi, bk, \
+                                         bsz, m, w, pitch, match, mismatch, \
+                                         go, ge, stream)
+  if (w % 32 == 0) NM_ONE(false, false);
+  if constexpr (LP == 1) {
+    NM_ONE(false, true);
+  } else if constexpr (LP == 32) {
+    NM_ONE(true, true);
+  } else {
+    if (w % LP) NM_ONE(true, true);
+    NM_ONE(false, true);
+  }
+#undef NM_ONE
 }
 
 }  // namespace

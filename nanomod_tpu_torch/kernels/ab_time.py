@@ -126,7 +126,10 @@ def worker(root):
     dp, k3, k3_f32, k3_deep, k6, k7, k9 = (
         [torch.from_numpy(x).to(dev) for x in group] for group in _inputs())
     tb, best, bi, bk = banded_sw_cuda(*dp)
-    if hasattr(banded, "walk_packed_cuda"):
+    if hasattr(banded, "walk"):
+        def walk():
+            return banded.walk(tb, bi, bk, packed=True)[0]
+    elif hasattr(banded, "walk_packed_cuda"):     # PR 3 to PR 5
         def walk():
             return banded.walk_packed_cuda(tb, bi, bk)
     else:

@@ -19,6 +19,7 @@ raises naming the first that cannot be built.
 from __future__ import annotations
 
 import ctypes
+import _ctypes
 import fcntl
 import os
 import struct
@@ -50,6 +51,10 @@ _OPTIONAL_FLAGS = {
     "fast5_probe": [["-l:libdeflate.so.0"], ["-ldeflate"],
                     ["-DNO_LIBDEFLATE"]],
 }
+
+# sources a library's source #includes: a library is stale when any of
+# them is newer than it
+_DEPS = {"fast5_probe": ["fast5_ingest.cpp"]}
 
 _LOCK = threading.Lock()
 _CACHE = {}
@@ -83,18 +88,28 @@ def is_whole(path: str) -> bool:
 
 
 def _opens(lib: str) -> bool:
+    """Whether ``lib`` opens here.  The check's handle is closed again, so
+    that it leaves nothing mapped: a library file cut short later would
+    otherwise fault the process (SIGBUS) when it touches those pages."""
     try:
-        ctypes.CDLL(lib)
+        handle = ctypes.CDLL(lib)._handle
     except OSError:
         return False
+    _ctypes.dlclose(handle)
     return True
 
 
-def _up_to_date(lib: str, src: str) -> bool:
-    """Newer than its source, whole, and it opens here (a library built on
-    another machine may link a library this one lacks)."""
+def _inputs(name: str, src: str) -> list:
+    """The source of library ``name`` and the sources it includes."""
+    here = os.path.dirname(src)
+    return [src] + [os.path.join(here, d) for d in _DEPS.get(name, [])]
+
+
+def _up_to_date(lib: str, srcs: list) -> bool:
+    """Newer than each of its sources, whole, and it opens here (a library
+    built on another machine may link a library this one lacks)."""
     return (os.path.exists(lib)
-            and os.path.getmtime(lib) >= os.path.getmtime(src)
+            and os.path.getmtime(lib) >= max(map(os.path.getmtime, srcs))
             and is_whole(lib) and _opens(lib))
 
 
@@ -129,7 +144,7 @@ def build(name: str, src_dir: str = SRC_DIR,
     os.makedirs(build_dir, exist_ok=True)
     with open(LOCK_PATH, "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _up_to_date(lib, src):
+        if not _up_to_date(lib, _inputs(name, src)):
             tmp = f"{lib}.{os.getpid()}.tmp"
             try:
                 _compile(name, src, tmp)

@@ -5,8 +5,8 @@
 // It compiles the port's copy of fast5_ingest.cpp into the same unit and
 // reuses its HDF5 parser (read_superblock, resolve_path), so the seven
 // copied sources stay byte-equal to the reference's.  The library is
-// rebuilt when this file is newer than it; touch it after a change to
-// fast5_ingest.cpp.
+// rebuilt when this file or fast5_ingest.cpp is newer than it
+// (native/build.py _DEPS).
 #include "fast5_ingest.cpp"
 
 namespace {

@@ -6,12 +6,11 @@ device of their tensors:
 
   * ``banded_sw``   CPU -> ``banded_sw_plain`` (plain PyTorch, a loop over
                     rows); CUDA -> kernel K1 (resquiggle/banded_kernel.py)
-  * ``walk_packed`` CPU -> ``walk_packed_plain`` (``pack_codes2`` of the
-                    plain walk ``walk_device_plain``); CUDA -> kernel K2
-                    (csrc/walk.cu), which packs the codes itself
-  * ``walk_codes``  the same walk, one code a byte, for a step count 2M+W
-                    that is not a multiple of 4: CPU -> ``walk_device_plain``;
-                    CUDA -> kernel K2 in its unpacked mode
+  * ``walk``        CPU -> the plain walk ``walk_device_plain`` (with
+                    ``pack_codes2``: ``walk_packed_plain``); CUDA -> kernel
+                    K2 (csrc/walk.cu), which packs the codes itself.  Its
+                    codes are four a byte where the step count 2M+W is a
+                    multiple of 4, else one a byte (the reference's modes)
 
 ``pack_tb``, ``pack_outputs`` and ``pack_codes2`` are byte reshuffles in
 plain PyTorch on either device.  The host decoders (``unpack_outputs``,
@@ -245,35 +244,20 @@ def _walk_cuda(tb, best_i, best_k, packed: bool):
     return codes
 
 
-def walk_packed_cuda(tb, best_i, best_k):
-    """Kernel K2 on CUDA tensors: what walk_packed_plain gives, one warp a
-    read, without the [B, 2M+W] code array.  2M+W must be a multiple of
-    4."""
-    return _walk_cuda(tb, best_i, best_k, packed=True)
-
-
-def walk_codes_cuda(tb, best_i, best_k):
-    """Kernel K2 on CUDA tensors, one code a byte: what walk_device_plain
-    gives, for any 2M+W (the reference's mode "codes")."""
-    return _walk_cuda(tb, best_i, best_k, packed=False)
-
-
-def walk_packed(tb, best_i, best_k):
-    """Packed traceback walk on the device of ``tb``: the plain version for
-    CPU tensors, kernel K2 for CUDA tensors (raises if it cannot
-    launch)."""
-    if tb.device.type == "cpu":
-        return walk_packed_plain(tb, best_i, best_k)
-    return walk_packed_cuda(tb, best_i, best_k)
-
-
-def walk_codes(tb, best_i, best_k):
-    """Unpacked traceback walk on the device of ``tb``: walk_device_plain
-    for CPU tensors, kernel K2 for CUDA tensors (raises if it cannot
-    launch)."""
-    if tb.device.type == "cpu":
-        return walk_device_plain(tb, best_i, best_k)
-    return walk_codes_cuda(tb, best_i, best_k)
+def walk(tb, best_i, best_k, packed=None):
+    """The traceback walk on the device of ``tb`` (the plain version for
+    CPU tensors, kernel K2 for CUDA tensors; raises if it cannot launch).
+    Returns (codes, packed): the codes four a byte, [B, (2M+W)/4], when
+    ``packed``, else one a byte, [B, 2M+W].  ``packed=None`` takes the
+    reference's mode (nanomod_tpu/resquiggle/pipeline.py dispatch_dp):
+    packed exactly when 2M+W is a multiple of 4."""
+    bsz, m, w = tb.shape
+    if packed is None:
+        packed = (2 * m + w) % 4 == 0
+    if tb.device.type != "cpu":
+        return _walk_cuda(tb, best_i, best_k, packed), packed
+    codes = walk_device_plain(tb, best_i, best_k)
+    return (pack_codes2(codes) if packed else codes), packed
 
 
 def pack_codes2(codes):

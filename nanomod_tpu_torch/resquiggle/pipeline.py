@@ -265,10 +265,7 @@ def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
         match=cfg.match_score, mismatch=cfg.mismatch_score,
         go=cfg.gap_open, ge=cfg.gap_extend,
     )
-    # the buckets make 2M a multiple of 4: the band width decides the mode
-    packed_codes = (2 * m + w) % 4 == 0
-    walk = banded.walk_packed if packed_codes else banded.walk_codes
-    codes = walk(tb, bi, bk)
+    codes, packed_codes = banded.walk(tb, bi, bk)
     packed = banded.pack_outputs(codes, best, bi, bk)
     event = None
     host = packed

@@ -107,7 +107,7 @@ def test_packed_walk_equals_packed_jax_walk(dp):
     *_, want, got = dp
     codes_j = jb.walk_device(want[0], want[2], want[3])
     t_tb, _, t_bi, t_bk = _torch(*got)
-    packed = tb.walk_packed(t_tb, t_bi, t_bk)
+    packed, _ = tb.walk(t_tb, t_bi, t_bk, packed=True)
     assert packed.dtype == torch.uint8
     assert packed.shape == (t_tb.shape[0], (2 * t_tb.shape[1]
                                             + t_tb.shape[2]) // 4)
@@ -133,7 +133,7 @@ def test_cpu_tensors_take_the_plain_version():
     read, ref, lens = _inputs(b=2, m=256, w=128, seed=5)
     before = kbuild.launch_counts()
     out = tb.banded_sw(*_torch(read, ref, lens))
-    tb.walk_packed(out[0], out[2], out[3])
+    tb.walk(out[0], out[2], out[3], packed=True)
     assert kbuild.launch_counts() == before
 
 
@@ -143,9 +143,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         banded_sw_cuda(read, ref, lens)
     with pytest.raises(ValueError, match="CUDA"):
-        tb.walk_packed_cuda(torch.zeros((2, 4, 32), dtype=torch.uint8),
-                            torch.zeros(2, dtype=torch.int32),
-                            torch.zeros(2, dtype=torch.int32))
+        tb._walk_cuda(torch.zeros((2, 4, 32), dtype=torch.uint8),
+                      torch.zeros(2, dtype=torch.int32),
+                      torch.zeros(2, dtype=torch.int32), packed=True)
 
 
 class _OnCuda(torch.Tensor):
@@ -187,4 +187,4 @@ def test_k2_wrapper_refuses_wrong_dtypes(bad):
     else:
         tbm = torch.zeros((2, 63, 32), dtype=torch.uint8)   # 2M+W = 158
     with pytest.raises(ValueError, match="uint8|int32|pack"):
-        tb.walk_packed_cuda(*map(_on_cuda, (tbm, bi, bk)))
+        tb._walk_cuda(*map(_on_cuda, (tbm, bi, bk)), packed=True)

@@ -77,26 +77,30 @@ def test_walk_matches_jax_both_modes(dp):
     """The unpacked walk equals walk_device at every width; where 2M+W is
     a multiple of 4 the packed walk equals pack_codes2 of it (elsewhere it
     raises), and the native decoder reads both layouts alike and agrees
-    with the native traceback of the matrix."""
+    with the native traceback of the matrix.  Unforced, the walk takes the
+    reference's mode: packed exactly where 2M+W is a multiple of 4."""
     *_, want, got = dp
     codes_j = np.asarray(jb.walk_device(want[0], want[2], want[3]))
     t_tb, _, t_bi, t_bk = _torch(*got)
-    codes_t = tb.walk_codes(t_tb, t_bi, t_bk)
-    assert codes_t.dtype == torch.uint8
+    codes_t, packed_mode = tb.walk(t_tb, t_bi, t_bk, packed=False)
+    assert not packed_mode and codes_t.dtype == torch.uint8
+    mode_codes, mode = tb.walk(t_tb, t_bi, t_bk)
+    assert mode == (codes_j.shape[1] % 4 == 0)
     np.testing.assert_array_equal(codes_j, codes_t.numpy())
     ops = tb.decode_walk_native(codes_t.numpy(), got[2], got[3],
                                 packed=False)
     if codes_j.shape[1] % 4 == 0:
-        packed = tb.walk_packed(t_tb, t_bi, t_bk).numpy()
+        packed = tb.walk(t_tb, t_bi, t_bk, packed=True)[0].numpy()
         np.testing.assert_array_equal(np.asarray(jb.pack_codes2(codes_j)),
                                       packed)
+        np.testing.assert_array_equal(mode_codes.numpy(), packed)
         ops_p = tb.decode_walk_native(packed, got[2], got[3], packed=True)
         for a, b in zip(ops, ops_p):
             for x, y in zip(a, b):
                 np.testing.assert_array_equal(x, y)
     else:
         with pytest.raises(ValueError, match="four a byte"):
-            tb.walk_packed(t_tb, t_bi, t_bk)
+            tb.walk(t_tb, t_bi, t_bk, packed=True)
     trace = tb.traceback_batch_native(got[0], got[2], got[3], packed=False)
     for a, b in zip(ops, trace):
         for x, y in zip(a, b):

@@ -68,10 +68,12 @@ def _k1_k2_equal(dev, read, ref, lens, **score):
     codes = banded.walk_device_plain(got[0], got[2], got[3])
     walks = 1
     if codes.shape[1] % 4 == 0:
-        assert torch.equal(banded.walk_packed(got[0], got[2], got[3]),
+        assert torch.equal(banded.walk(got[0], got[2], got[3],
+                                       packed=True)[0],
                            banded.pack_codes2(codes))
         walks += 1
-    assert torch.equal(banded.walk_codes(got[0], got[2], got[3]), codes)
+    assert torch.equal(banded.walk(got[0], got[2], got[3], packed=False)[0],
+                       codes)
     after = kbuild.launch_counts()
     assert after["banded_sw"] == before["banded_sw"] + 1
     assert after["walk"] == before["walk"] + walks
@@ -97,7 +99,7 @@ def test_k1_k2_off_grid_widths_match_plain(dev, w, m):
     rng = np.random.default_rng(7 * w + m)
     got = _k1_k2_equal(dev, *_reads(rng, 13, m, w))
     tbm, _, bi, bk = got
-    assert torch.equal(banded.walk_codes(tbm.contiguous(), bi, bk),
+    assert torch.equal(banded.walk(tbm.contiguous(), bi, bk, packed=False)[0],
                        banded.walk_device_plain(tbm, bi, bk))
 
 
@@ -128,7 +130,7 @@ def test_k2_start_outside_the_matrix(dev):
     bi[:4] = torch.tensor([256, 300, -1, 100], dtype=torch.int32)
     bk[:4] = torch.tensor([-1, 64, 5, 65], dtype=torch.int32)
     bi, bk = bi.to(dev), bk.to(dev)
-    assert torch.equal(banded.walk_packed(tbm, bi, bk),
+    assert torch.equal(banded.walk(tbm, bi, bk, packed=True)[0],
                        banded.walk_packed_plain(tbm, bi, bk))
 
 
@@ -141,8 +143,8 @@ def test_k1_rejects_bad_band(dev):
         banded.banded_sw(read, ref, lens)
     z = torch.zeros(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match=r"in \[1, 1024\]"):
-        banded.walk_codes(torch.zeros((2, 64, 2048), dtype=torch.uint8,
-                                      device=dev), z, z)
+        banded.walk(torch.zeros((2, 64, 2048), dtype=torch.uint8,
+                                device=dev), z, z)
 
 
 @pytest.mark.parametrize("c1,c2,lo,hi,dtype", [

@@ -139,14 +139,20 @@ def test_prepare_and_alignment_match_jax(chain):
                 np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("kw", [dict(align="bwa"), dict(align="minimap2"),
+@pytest.mark.parametrize("kw", [dict(align="bwa"),
+                                dict(band_width=2048, device="cuda"),
                                 dict(use_native=False),
                                 dict(use_device_walk=False)])
 def test_annotate_unported_options_raise(chain, kw):
+    """What the port still refuses, before any device work (so the CUDA
+    case runs without a card): the external aligners, the non-native
+    paths, and a band width above 1024 on the card."""
     from nanomod_tpu_torch.resquiggle.pipeline import process_prepared
+    kw = dict(kw)
+    device = kw.pop("device", "cpu")
     cfg = tcfg.AnnotateConfig(ref_fasta=os.path.join(chain[0], "ref.fa"), **kw)
     with pytest.raises(NotImplementedError):
-        process_prepared([], cfg, None, "cpu")
+        process_prepared([], cfg, None, device)
 
 
 @pytest.mark.parametrize("width,device,ok", [

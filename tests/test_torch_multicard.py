@@ -67,7 +67,7 @@ def test_k1_k2_on_a_card_that_is_not_current(cards):
 
     def k1_k2(rd, rf, ln):
         tb, best, bi, bk = banded.banded_sw(rd, rf, ln)
-        return best, bi, bk, banded.walk_packed(tb, bi, bk)
+        return best, bi, bk, banded.walk(tb, bi, bk, packed=True)[0]
     got, want = _elsewhere(cards, k1_k2, read, ref, lens)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)

@@ -88,3 +88,25 @@ def test_require_returns_the_handles():
     assert hasattr(libs[1], "decode_walk_batch")
     with pytest.raises(RuntimeError, match="no_such_lib"):
         native.require("no_such_lib")
+
+
+def test_probe_is_stale_after_its_include_changes(tmp_path):
+    """fast5_probe.cpp #includes fast5_ingest.cpp: a change to either makes
+    the probe library stale, so --resume never runs an old parser."""
+    lib, = native.require("fast5_probe")
+    d = str(tmp_path)
+    for src in ("fast5_probe.cpp", "fast5_ingest.cpp"):
+        shutil.copyfile(os.path.join(native.SRC_DIR, src),
+                        os.path.join(d, src))
+    copy = native.lib_path("fast5_probe", build_dir=d)
+    shutil.copyfile(lib._name, copy)
+    srcs = native._inputs("fast5_probe", native.source_path("fast5_probe", d))
+    assert [os.path.basename(s) for s in srcs] == ["fast5_probe.cpp",
+                                                   "fast5_ingest.cpp"]
+    now = time.time()
+    os.utime(copy, (now, now))
+    for s in srcs:
+        os.utime(s, (now - 10, now - 10))
+    assert native._up_to_date(copy, srcs)
+    os.utime(srcs[1], (now + 10, now + 10))
+    assert not native._up_to_date(copy, srcs)
