@@ -11,8 +11,9 @@ Phase 1  K1 (banded DP) and K2 (the traceback walk, its codes one a byte
          plain PyTorch versions on the card: B = 256 synthetic reads
          (genome windows with ~5 % substitutions and indels, some reads
          shorter than their bucket, some N codes), W = 128, M = 1024 (the
-         bucket of the main path's reads), 2048, 4096, 8192, and W = 130
-         and 100 at M = 1024; then a batch rich in ties (tandem repeats
+         bucket of the main path's reads), 2048, 4096, 8192, and W = 130,
+         100, 1025, 2048 and 4096 at M = 1024 (above 1024: K1's block of
+         warps a read, ragged at 1025, and K2's windowed walk); then a batch rich in ties (tandem repeats
          whose best score is reached at several cells), an all-mismatch
          batch (best 0 at (0, 0)), a ragged B = 37, W = 32 and W = 1024 at
          M = 256, and B = 37, M = 256 at W = 1, 4, 31, 33, 100, 130, 1000
@@ -52,9 +53,15 @@ Phase 3  the main path through its entry points: ``python -m
          native host battery's, K3's kernels in the trace, and the
          device-busy share of the whole run (the union of kernel and copy
          intervals over the traced span); ``annotate_folder`` at
-         band_width 130 on 256 of the raw smoke reads, on the card and on
-         the CPU: the walk in mode
-         "codes", K1 and K2 launched, every corrected FAST5 byte-equal;
+         band_width 130 on 256 of the raw smoke reads (the walk in mode
+         "codes") and at 2048 on 64 (mode "codes2", K1's block of warps a
+         read), on the card and on the CPU: K1 and K2 launched, every
+         corrected FAST5 byte-equal; the reduced full chain: ``python -m
+         nanomod_tpu_torch.tools.scale_fullchain --device cuda`` on raw
+         FAST5s the native raw writer wrote (a 100,000-base genome, 400
+         reads of 3 kb a group: M = 4096), 16 of its control reads
+         annotated on the CPU byte-equal to the card's, its table
+         byte-equal to the native host battery's;
          ``cli Annotate --resume 1 --device cuda`` over phase 3's
          corrected files: all already annotated, 0 to do, none rewritten.
 Phase 4  K6 (coverage-capped KS) against its plain version on the card: one
@@ -186,6 +193,9 @@ DP_RAGGED_B = 37
 # walk's codes one a byte): at B = 37, M = 256, and two at the main shape
 DP_OFF_GRID = (1, 4, 31, 33, 100, 130, 1000)
 DP_OFF_GRID_MAIN = (130, 100)
+# band widths above 1024 (K1: a block of warps a read, ragged at 1025; K2:
+# the windowed walk, both modes at 2048 and 4096) at the main shape
+DP_WIDE = (1025, 2048, 4096)
 # phase 4's tile above the old cap of 645: widths, rows, cov
 DEEP_CAPS = (1000, 290)
 DEEP_P = 256
@@ -237,10 +247,17 @@ SHARDED_COV = 60
 K7_OPS = 12
 K9_OPS = 4
 TORCHRUN_TIMEOUT = 600
-# phase 3's Annotate off the band-width grids: W (2M+W not a multiple of
-# 4: the unpacked walk) and reads (16 smoke reads, 16 copies each)
-ANNOTATE_W = 130
-ANNOTATE_W_READS = 256
+# phase 3's Annotate at other band widths, {W: reads}: off the grids (130:
+# 2M+W not a multiple of 4, the unpacked walk; 16 smoke reads, 16 copies
+# each) and above 1024 (2048: K1's block of warps a read, K2's windowed
+# walk; 4 copies each, as the CPU's run is slower there)
+ANNOTATE_WIDTHS = {130: 256, 2048: 64}
+# the reduced full chain (tools/scale_fullchain.py): its genome, reads a
+# group and read length (M = 4096), and the control reads also annotated
+# on the CPU
+FULLCHAIN_ENV = {"FC_GENOME": "100000", "FC_READS": "400",
+                 "FC_READ_LEN": "3000"}
+FULLCHAIN_CPU_READS = 16
 # the traced detect at genome scale: a synthetic genome of TRACE_GENOME
 # positions, corrected reads of TRACE_READ_LEN events (a nanopore read's
 # length) at TRACE_COVERAGE reads a position, strand and group, so that
@@ -544,7 +561,7 @@ def phase1(torch, dev):
 
     out = {}
     main = [(m, W) for m in DP_BUCKETS] \
-        + [(MAIN_PATH_BUCKET, w) for w in DP_OFF_GRID_MAIN]
+        + [(MAIN_PATH_BUCKET, w) for w in DP_OFF_GRID_MAIN + DP_WIDE]
     for m, w in main:
         read, ref, lens = on_card(synth_reads(rng, DP_BATCH, m, w))
         k_out, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
@@ -905,32 +922,6 @@ def check_drawn(stdout, path):
     return f"{len(data)} bytes"
 
 
-def trace_busy_share(path):
-    """From a Chrome trace of torch.profiler: the device-busy share (the
-    union of the kernel and copy intervals over the profiled wall time,
-    the span of all complete events) and the K3 kernel events."""
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and "dur" in e]
-    if not events:
-        raise AssertionError(f"{path} holds no complete event")
-    t0 = min(e["ts"] for e in events)
-    t1 = max(e["ts"] + e["dur"] for e in events)
-    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, -np.inf
-    for a, b in dev:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    k3 = [e for e in events if e.get("cat") == "kernel"
-          and ("battery_warp" in e["name"] or "battery_block" in e["name"])]
-    return {"wall_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
-            "device_busy_share": busy / (t1 - t0),
-            "device_events": len(dev), "k3_events": len(k3),
-            "k3_ms": sum(e["dur"] for e in k3) / 1e3}
-
-
 def make_corrected_group(folder, seed, shift):
     """A group folder of corrected FAST5s at genome scale, written by the
     native writer into copies of a raw smoke read: reads of TRACE_READ_LEN
@@ -1021,8 +1012,9 @@ def phase3_traced_detect(tmp, dev):
     if got != _read_bytes(os.path.join(host_dir, "mod_sign_test.txt")):
         raise AssertionError("the traced detect's table differs from the "
                              "host battery's")
+    from nanomod_tpu_torch.tools.common import trace_busy_share
     res = trace_busy_share(os.path.join(trace, "trace.rank0.json"))
-    if res["k3_events"] < 1:
+    if res["kernel_events"] < 1:
         raise AssertionError("the detect trace holds no K3 kernel event")
     with open(dfile) as f:
         metrics = json.load(f)
@@ -1041,20 +1033,21 @@ def phase3_traced_detect(tmp, dev):
     return res
 
 
-def phase3_band_width(torch, dev, tmp):
-    """Annotate at a band width off both grids (library call: the CLI has
-    no band-width option) on ANNOTATE_W_READS of the smoke reads, on the
-    card and on the CPU: every corrected FAST5 byte-equal, K1 and K2
-    launched, the walk in mode "codes" (2M+W not a multiple of 4)."""
+def phase3_band_width(torch, dev, tmp, width, n_reads):
+    """Annotate at another band width (library call: the CLI has no
+    band-width option) on ``n_reads`` of the smoke reads, on the card and
+    on the CPU: every corrected FAST5 byte-equal, K1 and K2 launched, the
+    walk in the reference's mode ("codes" where 2M+W is not a multiple of
+    4; M, a length bucket, is a multiple of 256)."""
     from nanomod_tpu_torch.config import AnnotateConfig
     from nanomod_tpu_torch.kernels import build as kbuild
     from nanomod_tpu_torch.resquiggle import pipeline
     data = os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data")
     names = sorted(os.listdir(os.path.join(data, "ctrl")))
-    copies = ANNOTATE_W_READS // len(names)
+    copies = n_reads // len(names)
     dirs = {}
     for where in ("cuda", "cpu"):
-        dirs[where] = os.path.join(tmp, f"w{ANNOTATE_W}_{where}")
+        dirs[where] = os.path.join(tmp, f"w{width}_{where}")
         os.makedirs(dirs[where])
         for name in names:
             for k in range(copies):
@@ -1070,13 +1063,13 @@ def phase3_band_width(torch, dev, tmp):
             modes.append("codes2" if batch.packed else "codes")
         return batch
 
-    res = {"band_width": ANNOTATE_W, "reads": copies * len(names)}
+    res = {"band_width": width, "reads": copies * len(names)}
     pipeline.dispatch_dp = recording
     try:
         for where, device in (("cuda", dev), ("cpu", "cpu")):
             cfg = AnnotateConfig(wrk_base1=dirs[where],
                                  ref_fasta=os.path.join(data, "ref.fa"),
-                                 band_width=ANNOTATE_W)
+                                 band_width=width)
             kbuild.reset_launches()
             t0 = time.perf_counter()
             n_ok, _ = pipeline.annotate_folder(cfg, device=device)
@@ -1089,23 +1082,107 @@ def phase3_band_width(torch, dev, tmp):
             modes.clear()
     finally:
         pipeline.dispatch_dp = dispatch
-    log(f"phase3 Annotate band_width={ANNOTATE_W}: walk mode "
+    mode = "codes" if width % 4 else "codes2"
+    log(f"phase3 Annotate band_width={width}: walk mode "
         f"{res['cuda_modes']}")
-    if res["cuda_modes"] != ["codes"] or res["cpu_modes"] != ["codes"]:
-        raise AssertionError(f"band_width {ANNOTATE_W} must walk in mode "
-                             f"codes: {res}")
+    if res["cuda_modes"] != [mode] or res["cpu_modes"] != [mode]:
+        raise AssertionError(f"band_width {width} must walk in mode "
+                             f"{mode}: {res}")
     if min(res["cuda_launches"].values()) <= 0:
         raise AssertionError(f"K1 or K2 was not launched: {res}")
     if res["cuda_reads_ok"] < 0.9 * res["reads"] or \
             res["cuda_reads_ok"] != res["cpu_reads_ok"]:
-        raise AssertionError(f"Annotate at band_width {ANNOTATE_W}: {res}")
+        raise AssertionError(f"Annotate at band_width {width}: {res}")
     for name in sorted(os.listdir(dirs["cpu"])):
         if _read_bytes(os.path.join(dirs["cuda"], name)) != \
                 _read_bytes(os.path.join(dirs["cpu"], name)):
             raise AssertionError(f"{name}: the card's corrected FAST5 "
                                  f"differs from the CPU's at band_width "
-                                 f"{ANNOTATE_W}")
+                                 f"{width}")
     log("phase3 band width", json.dumps(res))
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def check_fullchain(summary):
+    """The full chain's summary: nine in ten reads annotated in each
+    group, K1 and K2 launched by each Annotate, K3 by the detect."""
+    for stage in ("annotate_ctrl", "annotate_case"):
+        if min(summary[stage]["kernel_launches"].values()) <= 0 or \
+                summary[stage]["annotated"] < 0.9 * summary[stage]["reads"]:
+            raise AssertionError(f"the full chain's {stage}: "
+                                 f"{summary[stage]}")
+    if summary["detect"]["kernel_launches"]["battery"] <= 0:
+        raise AssertionError("the full chain's detect launched no K3")
+
+
+def phase3_fullchain(dev, tmp):
+    """The reduced full chain through tools/scale_fullchain.py: raw FAST5s
+    written by the native raw writer (FULLCHAIN_ENV: reads of 3 kb, M =
+    4096), annotated and detected on the card by the tool (a subprocess,
+    as a user runs it); FULLCHAIN_CPU_READS of the same raw control files
+    annotated on the CPU must be byte-equal to the card's, and the tool's
+    table to the native host battery's on the card's corrected files."""
+    from nanomod_tpu_torch.config import (AnnotateConfig, DetectConfig,
+                                          RankConfig)
+    from nanomod_tpu_torch.detect import run_detect
+    from nanomod_tpu_torch.resquiggle.pipeline import annotate_files
+    from nanomod_tpu_torch.tools import scale_fullchain as fc
+    root = os.path.join(tmp, "fullchain")
+    # the tool's sizes in this process, as its subprocess reads them
+    fc.GENOME_LEN, fc.N_READS, fc.READ_LEN = (
+        int(FULLCHAIN_ENV[k]) for k in ("FC_GENOME", "FC_READS",
+                                        "FC_READ_LEN"))
+    fasta, ctrl, case, _, written, gen_s = fc.make_dataset(root)
+    cpu_dir = os.path.join(tmp, "fullchain_cpu")
+    os.makedirs(cpu_dir)
+    names = sorted(os.path.relpath(os.path.join(d, n), ctrl)
+                   for d, _, ns in os.walk(ctrl) for n in ns)
+    names = names[:FULLCHAIN_CPU_READS]
+    for n in names:
+        shutil.copyfile(os.path.join(ctrl, n),
+                        os.path.join(cpu_dir, os.path.basename(n)))
+    env = _env()
+    env.update(FULLCHAIN_ENV)
+    proc = subprocess.run(
+        [sys.executable, "-m", "nanomod_tpu_torch.tools.scale_fullchain",
+         root, "--device", "cuda"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"scale_fullchain failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(root, "fullchain_summary.json")) as f:
+        summary = json.load(f)
+    check_fullchain(summary)
+    t0 = time.perf_counter()
+    n_ok, errors, _ = annotate_files(
+        [os.path.join(cpu_dir, os.path.basename(n)) for n in names],
+        AnnotateConfig(wrk_base1=cpu_dir, ref_fasta=fasta, out_level=2),
+        device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for n in names:
+        if _read_bytes(os.path.join(ctrl, n)) != \
+                _read_bytes(os.path.join(cpu_dir, os.path.basename(n))):
+            raise AssertionError(f"{n}: the card's corrected FAST5 differs "
+                                 f"from the CPU's (full chain)")
+    host = os.path.join(tmp, "fullchain_host")
+    run_detect(DetectConfig(
+        wrk_base1=ctrl, wrk_base2=case, out_folder=host,
+        file_id="fullchain", min_lr=500, rank=RankConfig(window=10)),
+        device=dev, backend="host")
+    got = _read_bytes(os.path.join(root, "out", "fullchain_sign_test.txt"))
+    if got != _read_bytes(os.path.join(host, "fullchain_sign_test.txt")) \
+            or len(got.splitlines()) < 1000:
+        raise AssertionError("the full chain's table differs from the host "
+                             "battery's")
+    res = {"sizes": FULLCHAIN_ENV, "written": written, "gen_s": gen_s,
+           "cpu_reads": len(names), "cpu_reads_ok": n_ok, "cpu_s": cpu_s,
+           "annotate": {k: summary[k] for k in ("annotate_ctrl",
+                                                "annotate_case")},
+           "detect": summary["detect"]}
+    log("phase3 fullchain", json.dumps(res))
+    shutil.rmtree(root, ignore_errors=True)
     return res
 
 
@@ -1911,7 +1988,9 @@ def main() -> int:
     try:
         p3, groups = phase3(torch, dev, tmp)
         p3["trace"] = phase3_traced_detect(tmp, dev)
-        p3["band_width"] = phase3_band_width(torch, dev, tmp)
+        p3["band_width"] = {w: phase3_band_width(torch, dev, tmp, w, n)
+                            for w, n in ANNOTATE_WIDTHS.items()}
+        p3["fullchain"] = phase3_fullchain(dev, tmp)
         p3["resume"] = phase3_resume(tmp, groups)
         p4 = phase4(torch, dev)
         p5 = phase5(torch, dev, tmp, groups)

@@ -23,10 +23,12 @@
 //    of two).  The k+1 neighbour of a lane is in the same thread except
 //    for the thread's last lane, which takes the next thread's first by
 //    one __shfl_down_sync.
-//  * Any W in [1, 1024].  Lanes k >= W are computed and dropped: they
-//    only feed lanes above them (the running max runs up the band), except
-//    through the k+1 neighbour of lane W-1, which must read the band's
-//    end.  Whole threads past W are cut off by the thread's edge test.
+//  * Any W in [1, 1024] (wider bands: banded_sw_wide_kernel, below, a
+//    block of several warps a read).  Lanes k >= W are computed and
+//    dropped: they only feed lanes above them (the running max runs up
+//    the band), except through the k+1 neighbour of lane W-1, which must
+//    read the band's end.  Whole threads past W are cut off by the
+//    thread's edge test.
 //    When W is not a multiple of LP, one thread holds lanes on both sides
 //    of W (the RAGGED instantiation): it keeps H and F of its lanes past W
 //    at NEG in every row, so that lane W-1 reads NEG from its neighbour,
@@ -366,9 +368,325 @@ int launch(const void* read, const void* ref, const void* lens, void* tb,
 #undef NM_ONE
 }
 
+
+// ---------------------------------------------------------------------------
+// W in (1024, 32768]: a block of NW = ceil(W / (32 LP)) warps a read
+// ---------------------------------------------------------------------------
+//
+// The same recurrences, lanes and order of operations as banded_sw_kernel;
+// thread t of the block holds lanes t*LP .. t*LP+LP-1.  Two things cross a
+// warp boundary in a row: the k+1 neighbour of a warp's top lane (lane 0 of
+// the next warp, from the previous row) and the exclusive running max of
+// Hnoe - ge*k (the totals of the warps below).  Both go through shared
+// memory with ONE __syncthreads a row:
+//
+//  * Before the barrier each warp computes its lanes and its warp scan with
+//    the top lane (lane 31's last) left out, since only that lane needs the
+//    next warp, and publishes the scan's total without it, T'.  At the end
+//    of a row each warp publishes the state of its lane 0 (H, F) and of its
+//    top lane (H).  Slots are double-buffered by row parity, so a slot is
+//    never written while a warp may still read it.
+//  * After the barrier lane 31 finishes its top lane from the next warp's
+//    published lane 0, and the warp's prefix over the warps below is
+//    max_l max(T'_l, Hnoe_top_l - ge*k_top_l) for l < g: lane l rebuilds
+//    warp l's top-lane Hnoe from the published previous row (the same
+//    adds in the same order, so the same bits) and a 5-step butterfly takes
+//    the max.  Max is exact, so the order of the cross-warp scan does not
+//    matter.  Lane g-1's rebuilt Hnoe is also the left neighbour of the
+//    warp's lane 0 (the E-extend test of the tail).
+//  * The ragged end is the single-warp kernel's: lanes k >= W hold NEG.
+//  * The codes of a chunk of RC rows come in through every thread of the
+//    block; the best cell is reduced in each warp, then across the warps,
+//    with the same rule (largest value, smallest row, smallest k).
+//
+// LP is 8 up to W = 4096 (16 warps), 16 up to 16384 and 32 up to 32768 (32
+// warps); above 16 warps a thread has at most 64 registers and the lane
+// arrays spill to local memory.  Slow, but bit-exact.
+
+constexpr int WIDE_MAX_W = 32768;
+
+template <int LP, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+    banded_sw_wide_kernel(const uint8_t* __restrict__ read,
+                          const uint8_t* __restrict__ ref,
+                          const int32_t* __restrict__ lens,
+                          uint8_t* __restrict__ tb,
+                          float* __restrict__ best_out,
+                          int32_t* __restrict__ bi_out,
+                          int32_t* __restrict__ bk_out, int m, int w,
+                          float match, float mismatch, float go, float ge,
+                          int pitch) {
+  static_assert(LP >= 2, "the top lane is not the thread's only lane");
+  extern __shared__ uint8_t s_rf[];  // (LP + 1) * blockDim.x ref codes
+  __shared__ uint8_t s_rd[RC];
+  // row-parity slots, one a warp: T' (this row), lane 0's H and F and the
+  // top lane's H (the previous row)
+  __shared__ float s_t[2][32], s_h0[2][32], s_f0[2][32], s_ht[2][32];
+  __shared__ float s_bv[32];
+  __shared__ int s_br[32], s_bk[32];
+
+  const int nt = blockDim.x;
+  const int nw = nt >> 5;
+  const int tid = threadIdx.x;
+  const int g = tid >> 5;
+  const int lane = tid & 31;
+  const int b = blockIdx.x;
+  const int rw = m + w;
+  const uint8_t* rd = read + (size_t)b * m;
+  const uint8_t* rf = ref + (size_t)b * rw;
+  uint8_t* tbb = tb + (size_t)b * m * pitch;
+  const int len = lens[b];
+  const int k0 = tid * LP;
+  const bool live = k0 < w;
+  const bool edge = k0 + LP >= w;
+  bool past[LP];
+#pragma unroll
+  for (int j = 0; j < LP; ++j) past[j] = k0 + j >= w;
+  float match_r, mismatch_r;
+  asm("mov.b32 %0, %1;" : "=f"(match_r) : "f"(match));
+  asm("mov.b32 %0, %1;" : "=f"(mismatch_r) : "f"(mismatch));
+  // lane l's part of the prefix: the top lane of warp l
+  const int ktop = (lane + 1) * 32 * LP - 1;
+  const float gek_top = __fmul_rn(ge, (float)ktop);
+
+  float gek[LP], e_base[LP], h[LP], f[LP], bv[LP];
+  int br[LP];
+#pragma unroll
+  for (int j = 0; j < LP; ++j) {
+    gek[j] = __fmul_rn(ge, (float)(k0 + j));
+    e_base[j] = __fsub_rn(__fadd_rn(gek[j], go), ge);
+    h[j] = past[j] ? NEGF : 0.f;
+    f[j] = NEGF;
+    bv[j] = 0.f;
+    br[j] = 0;
+  }
+
+  uint8_t n_rd = 8;
+  uint8_t n_rf[LP + 1];
+  auto fetch = [&](int i0) {
+    if (tid < RC) {
+      const int c = i0 + tid < m ? rd[i0 + tid] : 8;
+      n_rd = c < 4 ? c : 8;
+    }
+#pragma unroll
+    for (int q = 0; q <= LP; ++q) {
+      const int x = i0 + q * nt + tid;
+      const int d = x < rw ? rf[x] : 9;
+      n_rf[q] = d < 4 ? d : 9;
+    }
+  };
+  auto stage = [&]() {
+    if (tid < RC) s_rd[tid] = n_rd;
+#pragma unroll
+    for (int q = 0; q <= LP; ++q) s_rf[q * nt + tid] = n_rf[q];
+  };
+  fetch(0);
+  stage();
+  // the state of row -1 (parity 1)
+  if (lane == 0) {
+    s_h0[1][g] = h[0];
+    s_f0[1][g] = f[0];
+  }
+  if (lane == 31) s_ht[1][g] = h[LP - 1];
+  __syncthreads();
+
+  float p_hne[LP], p_e[LP], p_hd[LP], p_hu[LP];
+#pragma unroll
+  for (int j = 0; j < LP; ++j) {
+    p_hne[j] = 0.f;
+    p_e[j] = 0.f;
+    p_hd[j] = 0.f;
+    p_hu[j] = 0.f;
+  }
+  float p_left = NEGF;  // the previous row's Hnoe[k0 - 1] of lane 0
+  auto tail = [&](int ip) {
+    float hn_left = __shfl_up_sync(FULL, p_hne[LP - 1], 1);
+    if (lane == 0) hn_left = p_left;
+    uint32_t wd[(LP + 3) / 4] = {};
+#pragma unroll
+    for (int j = 0; j < LP; ++j) {
+      const float h_cur = h[j];
+      const float f_cur = f[j];
+      const float e_cur = p_e[j];
+      const int s3 = f_cur >= fmaxf(p_hd[j], 0.f) ? 3 : 1;
+      const int s2 = e_cur >= p_hne[j] ? 2 : s3;
+      const int src = h_cur <= 0.f ? 0 : s2;
+      const float hp = j ? p_hne[j - 1] : hn_left;
+      const int e_ext = e_cur > __fadd_rn(__fadd_rn(hp, go), 1e-4f);
+      const int f_ext = f_cur > __fadd_rn(__fadd_rn(p_hu[j], go), 1e-4f);
+      wd[j >> 2] |= (uint32_t)(src | (e_ext << 2) | (f_ext << 3))
+                    << (8 * (j & 3));
+      if (h_cur > bv[j]) {
+        bv[j] = h_cur;
+        br[j] = ip;
+      }
+    }
+    if (live && ip >= 0) store_row<LP>(tbb + (size_t)ip * pitch + k0, wd);
+  };
+
+  for (int i0 = 0; i0 < m; i0 += RC) {
+    const bool more = i0 + RC < m;
+    if (more) fetch(i0 + RC);
+    const int rows = min(RC, m - i0);
+    for (int r = 0; r < rows; ++r) {
+      const int i = i0 + r;
+      const int p = i & 1, q = p ^ 1;
+      const bool valid = i < len;
+      const int rc = s_rd[r];
+      const uint8_t* rr = &s_rf[r + k0];
+
+      float hu[LP], fu[LP];
+#pragma unroll
+      for (int j = 0; j + 1 < LP; ++j) {
+        hu[j] = h[j + 1];
+        fu[j] = f[j + 1];
+      }
+      const float hn = __shfl_down_sync(FULL, h[0], 1);
+      const float fn = __shfl_down_sync(FULL, f[0], 1);
+      // lane 31's top lane is finished after the barrier
+      hu[LP - 1] = edge ? NEGF : hn;
+      fu[LP - 1] = edge ? NEGF : fn;
+
+      float fc[LP], hd[LP], hne[LP], pre[LP];
+#pragma unroll
+      for (int j = 0; j < LP; ++j) {
+        const float sub = rr[j] == rc ? match_r : mismatch_r;
+        fc[j] = fmaxf(__fadd_rn(hu[j], go), __fadd_rn(fu[j], ge));
+        hd[j] = __fadd_rn(h[j], sub);
+        hne[j] = fmaxf(fmaxf(hd[j], fc[j]), 0.f);
+        const float a = __fsub_rn(hne[j], gek[j]);
+        pre[j] = j ? fmaxf(pre[j - 1], a) : a;
+      }
+      tail(i - 1);
+      // the warp scan without the top lane
+      float incl = lane == 31 ? pre[LP - 2] : pre[LP - 1];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1)
+        incl = fmaxf(incl, __shfl_up_sync(FULL, incl, o));
+      float excl = __shfl_up_sync(FULL, incl, 1);
+      if (lane == 0) excl = NEGF;
+      if (lane == 31) s_t[p][g] = incl;
+      __syncthreads();
+
+      if (lane == 31 && !edge) {  // the next warp's lane 0, previous row
+        hu[LP - 1] = s_h0[q][g + 1];
+        fu[LP - 1] = s_f0[q][g + 1];
+        fc[LP - 1] = fmaxf(__fadd_rn(hu[LP - 1], go),
+                           __fadd_rn(fu[LP - 1], ge));
+        hne[LP - 1] = fmaxf(fmaxf(hd[LP - 1], fc[LP - 1]), 0.f);
+      }
+      // the prefix over the warps below: lane l rebuilds warp l's top lane
+      float ax = NEGF, hx = NEGF;
+      if (lane < g) {
+        const float sub = s_rf[r + ktop] == rc ? match_r : mismatch_r;
+        const float hd_x = __fadd_rn(s_ht[q][lane], sub);
+        const float fc_x = fmaxf(__fadd_rn(s_h0[q][lane + 1], go),
+                                 __fadd_rn(s_f0[q][lane + 1], ge));
+        hx = fmaxf(fmaxf(hd_x, fc_x), 0.f);
+        ax = fmaxf(s_t[p][lane], __fsub_rn(hx, gek_top));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        ax = fmaxf(ax, __shfl_xor_sync(FULL, ax, o));
+      const float left = __shfl_sync(FULL, hx, g > 0 ? g - 1 : 0);
+      excl = fmaxf(excl, ax);
+
+#pragma unroll
+      for (int j = 0; j < LP; ++j) {
+        const float cm = j ? fmaxf(excl, pre[j - 1]) : excl;
+        const float e_cur = __fadd_rn(e_base[j], cm);
+        float h_cur = fmaxf(hne[j], e_cur);
+        float f_cur = fc[j];
+        if (!valid) {
+          h_cur = 0.f;
+          f_cur = NEGF;
+        }
+        if (past[j]) {
+          h_cur = NEGF;
+          f_cur = NEGF;
+        }
+        h[j] = h_cur;
+        f[j] = f_cur;
+        p_hne[j] = hne[j];
+        p_e[j] = e_cur;
+        p_hd[j] = hd[j];
+        p_hu[j] = hu[j];
+      }
+      p_left = g > 0 ? left : NEGF;
+      if (lane == 0) {
+        s_h0[p][g] = h[0];
+        s_f0[p][g] = f[0];
+      }
+      if (lane == 31) s_ht[p][g] = h[LP - 1];
+    }
+    __syncthreads();  // every thread is done with this chunk's codes
+    if (more) stage();
+    __syncthreads();
+  }
+  tail(m - 1);
+
+  float v = -1.f;
+  int row = 0x7fffffff, kk = 0x7fffffff;
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < LP; ++j) {
+      if (past[j]) continue;
+      if (bv[j] > v || (bv[j] == v && br[j] < row)) {
+        v = bv[j];
+        row = br[j];
+        kk = k0 + j;
+      }
+    }
+  }
+  auto reduce = [&]() {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float v2 = __shfl_down_sync(FULL, v, o);
+      const int r2 = __shfl_down_sync(FULL, row, o);
+      const int k2 = __shfl_down_sync(FULL, kk, o);
+      if (v2 > v || (v2 == v && (r2 < row || (r2 == row && k2 < kk)))) {
+        v = v2;
+        row = r2;
+        kk = k2;
+      }
+    }
+  };
+  reduce();
+  if (lane == 0) {
+    s_bv[g] = v;
+    s_br[g] = row;
+    s_bk[g] = kk;
+  }
+  __syncthreads();
+  if (g == 0) {
+    v = lane < nw ? s_bv[lane] : -1.f;
+    row = lane < nw ? s_br[lane] : 0x7fffffff;
+    kk = lane < nw ? s_bk[lane] : 0x7fffffff;
+    reduce();
+    if (lane == 0) {
+      best_out[b] = v;
+      bi_out[b] = row;
+      bk_out[b] = kk;
+    }
+  }
+}
+
+template <int LP, int MAXT>
+int launch_wide(const void* read, const void* ref, const void* lens,
+                void* tb, void* best, void* bi, void* bk, int bsz, int m,
+                int w, int pitch, float match, float mismatch, float go,
+                float ge, cudaStream_t stream) {
+  const int nt = 32 * ((w + 32 * LP - 1) / (32 * LP));
+  banded_sw_wide_kernel<LP, MAXT><<<bsz, nt, (LP + 1) * nt, stream>>>(
+      (const uint8_t*)read, (const uint8_t*)ref, (const int32_t*)lens,
+      (uint8_t*)tb, (float*)best, (int32_t*)bi, (int32_t*)bk, m, w, match,
+      mismatch, go, ge, pitch);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// w in [1, 1024]; pitch: tb's row stride in bytes, w rounded up to a
+// w in [1, 32768]; pitch: tb's row stride in bytes, w rounded up to a
 // multiple of 32 (the wrapper checks both)
 extern "C" int nm_banded_sw(const void* read, const void* ref,
                             const void* lens, void* tb, void* best, void* bi,
@@ -377,6 +695,17 @@ extern "C" int nm_banded_sw(const void* read, const void* ref,
                             void* stream) {
   if (bsz <= 0 || m <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (w > 1024) {
+    if (w > WIDE_MAX_W) return (int)cudaErrorInvalidValue;
+#define NM_WIDE(LP, MAXT)                                                  \
+  return launch_wide<LP, MAXT>(read, ref, lens, tb, best, bi, bk, bsz, m, \
+                               w, pitch, match, mismatch, go, ge, st)
+    if (w <= 4096) NM_WIDE(8, 512);
+    if (w <= 8192) NM_WIDE(16, 512);
+    if (w <= 16384) NM_WIDE(16, 1024);
+    NM_WIDE(32, 1024);
+#undef NM_WIDE
+  }
   const int l = (w + 31) / 32;  // band lanes a thread must hold
 #define NM_LAUNCH(LP)                                                     \
   return launch<LP>(read, ref, lens, tb, best, bi, bk, bsz, m, w, pitch, \

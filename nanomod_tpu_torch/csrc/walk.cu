@@ -46,6 +46,8 @@
 //    0 leaves its loop (a tile ends, the ring fills, the walk ends), and
 //    the whole warp writes the zero tail after the walk.  The shared
 //    addresses stay in registers (see opaque_smem).
+//  * A pitch above 1024 bytes (W > 1024) takes walk_wide_kernel, which
+//    stages a window of columns around the walk instead of whole rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -248,16 +250,138 @@ __global__ void __launch_bounds__(32)
   for (int q = flushed + lane; q < nbytes; q += 32) o[q] = 0;
 }
 
+
+// Pitch > 1024 (W > 1024): a tile of whole rows no longer fits, and a walk
+// touches about one byte a step along a diagonal.  So the warp stages a
+// window of WIN_ROWS rows by WIN_COLS columns around the walk's cell (rows
+// i - WIN_ROWS + 1 .. i, columns from 16-byte aligned c0, half the window
+// on each side of k) with 16-byte cp.async, and lane 0 walks inside it.
+// A step moves one row up (M, I) or one column left (D) or right (I), so a
+// walk stays at least WIN_ROWS / 2 steps in a window; when it leaves, the
+// warp flushes the codes and stages the window around the new cell.  The
+// codes go out through the same shared ring as walk_kernel's.
+constexpr int WIN_ROWS = 32;
+constexpr int WIN_COLS = 128;
+
+template <bool PACKED>
+__global__ void __launch_bounds__(32)
+    walk_wide_kernel(const uint8_t* __restrict__ tb,
+                     const int32_t* __restrict__ best_i,
+                     const int32_t* __restrict__ best_k,
+                     uint8_t* __restrict__ out, int m, int w, int p) {
+  __shared__ __align__(16) uint8_t win[WIN_ROWS * WIN_COLS];
+  __shared__ uint8_t cbuf[CODE_BYTES];
+  constexpr int PER = PACKED ? 4 : 1;
+  constexpr int SH = PACKED ? 2 : 0;
+
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  const int steps = 2 * m + w;
+  const int nbytes = steps / PER;
+  const uint8_t* t = tb + (size_t)b * m * p;
+  uint8_t* o = out + (size_t)b * nbytes;
+  const unsigned cb = opaque_smem(cbuf);
+
+  int i = best_i[b];
+  int k = best_k[b];
+  int st = 0;
+  bool done = false;
+  uint32_t cur = 0;
+  auto put = [&](int s, int code) {
+    if constexpr (PACKED) {
+      cur = (cur >> 2) | ((unsigned)code << 6);
+      sts_u8(cb + ((s >> 2) & (CODE_BYTES - 1)), cur);
+    } else {
+      sts_u8(cb + (s & (CODE_BYTES - 1)), (unsigned)code);
+    }
+  };
+
+  int r0 = -1, c0 = 0;  // the window: rows r0 - WIN_ROWS + 1 .. r0
+  int s = 0;
+  int flushed = 0;
+  while (true) {
+    int want = 0;
+    if (lane == 0) {
+      const int s_stop = min(steps, PER * (flushed + CODE_BYTES));
+      while (s < s_stop && !done) {
+        int x;
+        if ((unsigned)i >= (unsigned)m || (unsigned)k >= (unsigned)w) {
+          // the reference's clamped step (never after K1)
+          x = t[(size_t)min(max(i, 0), m - 1) * p + min(max(k, 0), w - 1)];
+        } else if (i <= r0 && i > r0 - WIN_ROWS && k >= c0
+                   && k < c0 + WIN_COLS) {
+          x = win[(r0 - i) * WIN_COLS + (k - c0)];
+        } else {
+          want = 1;
+          break;
+        }
+        const uint64_t tt = st == 0 ? T0 : (st == 1 ? T1 : T2);
+        const unsigned e = (unsigned)(tt >> (4 * x)) & 15u;
+        const int code = e & 3;
+        st = e >> 2;
+        put(s, code);
+        ++s;
+        i -= code == 1 || code == 2;
+        k += (code == 2) - (code == 3);
+        done = code == 0 || i < 0 || k < 0 || k >= w;
+      }
+    }
+    s = __shfl_sync(FULL, s, 0);
+    const bool end = __shfl_sync(FULL, (int)(done || s >= steps), 0);
+    want = __shfl_sync(FULL, want, 0);
+    const int full = s >> SH;
+    __syncwarp();
+    for (int q = flushed + lane; q < full; q += 32)
+      o[q] = cbuf[q & (CODE_BYTES - 1)];
+    flushed = full;
+    __syncwarp();
+    if (end) break;
+    if (want) {
+      r0 = __shfl_sync(FULL, i, 0);
+      const int kc = __shfl_sync(FULL, k, 0);
+      c0 = min(max((kc - WIN_COLS / 2) & ~15, 0), p - WIN_COLS);
+      constexpr int PER_ROW = WIN_COLS / 16;
+      for (int q = lane; q < WIN_ROWS * PER_ROW; q += 32) {
+        const int row = q / PER_ROW, col = (q % PER_ROW) * 16;
+        if (r0 - row >= 0)
+          cp_async16(win + row * WIN_COLS + col,
+                     t + (size_t)(r0 - row) * p + c0 + col);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+    }
+  }
+  if constexpr (PACKED) {
+    if (s & 3) {
+      if (lane == 0) o[flushed] = (uint8_t)(cur >> (2 * (4 - (s & 3))));
+      ++flushed;
+    }
+  }
+  for (int q = flushed + lane; q < nbytes; q += 32) o[q] = 0;
+}
+
 }  // namespace
 
-// w in [1, 1024]; pitch: tb's row stride, a multiple of 16 in [w, 1024];
-// packed != 0: four codes a byte, 2m + w a multiple of 4 (the wrapper
-// checks all three)
+// w in [1, 32768]; pitch: tb's row stride, a multiple of 16 in [w,
+// 32768]; packed != 0: four codes a byte, 2m + w a multiple of 4 (the
+// wrapper checks all three).  A pitch above GUARD walks in windows.
 extern "C" int nm_walk(const void* tb, const void* bi, const void* bk,
                        void* codes, int bsz, int m, int w, int pitch,
                        int packed, void* stream) {
   if (bsz <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (pitch > GUARD) {
+    if (packed)
+      walk_wide_kernel<true><<<bsz, 32, 0, st>>>(
+          (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,
+          (uint8_t*)codes, m, w, pitch);
+    else
+      walk_wide_kernel<false><<<bsz, 32, 0, st>>>(
+          (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,
+          (uint8_t*)codes, m, w, pitch);
+    return (int)cudaGetLastError();
+  }
   if (packed)
     walk_kernel<true><<<bsz, 32, 0, st>>>(
         (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,

@@ -2,8 +2,9 @@
 
 The port runs its host code in C++: ``nanomod_tpu_torch/native/<name>.cpp``
 (copies of the reference's sources, held byte-equal to them by
-tests/test_torch_standalone.py, and the port's own fast5_probe.cpp, which
-includes fast5_ingest.cpp), bound with ctypes by the ``*_bind``
+tests/test_torch_standalone.py, and the port's own fast5_probe.cpp and
+fast5_rawwrite.cpp, which include fast5_ingest.cpp and fast5_write.cpp),
+bound with ctypes by the ``*_bind``
 modules beside them.  ``load_native`` builds each library with g++ once,
 under an inter-process lock (``fcntl.flock`` on a file in
 ``nanomod_tpu_torch/_build/``), into a temporary file that ``os.replace``
@@ -36,6 +37,7 @@ _EXTRA_FLAGS = {
     "fast5_ingest": ["-lz", "-pthread"],
     "fast5_probe": ["-lz", "-pthread"],
     "fast5_write": ["-lz", "-pthread"],
+    "fast5_rawwrite": ["-lz", "-pthread"],
     "sort_core": ["-pthread"],
     "traceback": ["-pthread"],
     "format_core": ["-pthread"],
@@ -50,11 +52,14 @@ _OPTIONAL_FLAGS = {
                      ["-DNO_LIBDEFLATE"]],
     "fast5_probe": [["-l:libdeflate.so.0"], ["-ldeflate"],
                     ["-DNO_LIBDEFLATE"]],
+    "fast5_rawwrite": [["-l:libdeflate.so.0"], ["-ldeflate"],
+                       ["-DNO_LIBDEFLATE"]],
 }
 
 # sources a library's source #includes: a library is stale when any of
 # them is newer than it
-_DEPS = {"fast5_probe": ["fast5_ingest.cpp"]}
+_DEPS = {"fast5_probe": ["fast5_ingest.cpp"],
+         "fast5_rawwrite": ["fast5_write.cpp"]}
 
 _LOCK = threading.Lock()
 _CACHE = {}

@@ -196,13 +196,14 @@ def walk_packed_plain(tb, best_i, best_k):
 
 def _pitched(tb):
     """(tb, pitch) as K2 reads it: rows of ``pitch`` bytes, a multiple of
-    16 in [W, 1024], at a 16-byte aligned address.  K1's output (a
-    [..., :W] view of rows padded to tb_pitch(W)) already is; any other tb
-    is copied into such rows."""
+    16 in [W, tb_pitch(MAX_W)], at a 16-byte aligned address.  K1's output
+    (a [..., :W] view of rows padded to tb_pitch(W)) already is; any other
+    tb is copied into such rows."""
     from nanomod_tpu_torch.resquiggle.banded_kernel import MAX_W, tb_pitch
     bsz, m, w = tb.shape
     s0, s1, s2 = tb.stride()
-    if (s2 == 1 and s1 % 16 == 0 and w <= s1 <= MAX_W and s0 == m * s1
+    if (s2 == 1 and s1 % 16 == 0 and w <= s1 <= tb_pitch(MAX_W)
+            and s0 == m * s1
             and tb.data_ptr() % 16 == 0):
         return tb, s1
     pitch = tb_pitch(w)

@@ -4,9 +4,12 @@ Port of the Pallas TPU kernel nanomod_tpu/resquiggle/banded_pallas.py
 banded_sw_pallas: same inputs and outputs as resquiggle/banded.py
 banded_sw, array-equal to it.  Unlike the Pallas wrapper, no [B, M, W] f32
 substitution array is built (the kernel scores the u8 codes itself) and B
-need not be a multiple of 8, and W is any width in [1, 1024].  One warp
-aligns one read (see the kernel's source note).  The traceback rows are
-written with a pitch of W rounded up to a multiple of 32 bytes
+need not be a multiple of 8, and W is any width in [1, MAX_W].  Up to
+W = 1024 one warp aligns one read; a wider band runs a block of
+ceil(W / (32 LP)) warps a read (LP = 8, 16 or 32 lanes a thread), which
+exchange the band's boundary through shared memory once a row (see the
+kernel's source note); the kernel picks its launch from W.  The traceback
+rows are written with a pitch of W rounded up to a multiple of 32 bytes
 (``tb_pitch``), and the [B, M, W] view of them is returned; K2 reads that
 pitch.  The plain version is banded.banded_sw_plain.
 """
@@ -17,7 +20,7 @@ import torch
 
 from nanomod_tpu_torch.kernels import build as kbuild
 
-MAX_W = 1024     # 32 lanes a thread at most
+MAX_W = 32768  # 32 warps of 32 lanes a thread at most
 
 
 def tb_pitch(w: int) -> int:
@@ -29,7 +32,7 @@ def tb_pitch(w: int) -> int:
 def banded_sw_cuda(read_codes, ref_window_codes, read_len, *,
                    match=2, mismatch=-3, go=-5, ge=-2):
     """Launch K1 on CUDA tensors: read_codes [B, M] uint8,
-    ref_window_codes [B, M + W] uint8, read_len [B] int32, W in [1, 1024].
+    ref_window_codes [B, M + W] uint8, read_len [B] int32, W in [1, MAX_W].
     Returns (tb [B, M, W] uint8, a view of rows of tb_pitch(W) bytes;
     best [B] f32, best_i [B] i32, best_k [B] i32)."""
     dev = read_codes.device

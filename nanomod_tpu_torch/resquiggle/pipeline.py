@@ -77,10 +77,28 @@ def _length_bucket(m: int, buckets=(256, 512, 1024, 2048, 4096, 8192, 16384)) ->
     return ((m + 16383) // 16384) * 16384
 
 
+# Bytes of traceback a DP sub-batch may hold on the device: [B, M,
+# tb_pitch(W)] u8, two sub-batches in flight.  The reference's
+# dp_batch_size (256) stays within it up to W = 4096 at M = 4096; a wider
+# band or a longer bucket halves the sub-batch until it fits (M 8192, W
+# 8192: 64 reads, not 256).  A read's result does not depend on its
+# batch.
+TB_BUDGET = 4 << 30
+
+
+def _fit_batch(sub: int, m: int, w: int) -> int:
+    """``sub`` halved until a sub-batch's traceback fits TB_BUDGET."""
+    from nanomod_tpu_torch.resquiggle.banded_kernel import tb_pitch
+    while sub > 1 and sub * m * tb_pitch(w) > TB_BUDGET:
+        sub //= 2
+    return sub
+
+
 def _check_supported(cfg: AnnotateConfig, device):
     """Raise for the reference options this port does not run: a band
-    width above 1024 on the card (K1 and K2 hold at most 32 band lanes a
-    thread), the external aligners and the non-native paths."""
+    width above MAX_W (32,768) on the card (K1 holds at most 32 warps of
+    32 band lanes a thread), the external aligners and the non-native
+    paths."""
     from nanomod_tpu_torch.resquiggle.banded_kernel import MAX_W
     w = cfg.band_width
     if torch.device(device).type == "cuda" and w > MAX_W:
@@ -362,10 +380,11 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
             buckets: Dict[int, List[PreparedRead]] = defaultdict(list)
             for r in chunk:
                 buckets[_length_bucket(len(r.fwd_seq))].append(r)
-            for bucket_reads in buckets.values():
-                for lo in range(0, len(bucket_reads), sub):
-                    yield (bucket_reads[lo: lo + sub],
-                           sub if len(bucket_reads) > sub else 0)
+            for m, bucket_reads in buckets.items():
+                step = _fit_batch(sub, m, cfg.band_width)
+                for lo in range(0, len(bucket_reads), step):
+                    yield (bucket_reads[lo: lo + step],
+                           step if len(bucket_reads) > step else 0)
 
     dp_parts = dp_parts_gen()
     devices = itertools.cycle(_fan_out_devices(cfg, device))

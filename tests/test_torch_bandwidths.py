@@ -1,6 +1,6 @@
-"""Band widths off the grids of 32 and 4: the port's banded DP and walk
-(plain versions of kernels K1 and K2) and its Annotate against the JAX
-package on the same inputs.
+"""Band widths off the grids of 32 and 4, and above 1024: the port's
+banded DP and walk (plain versions of kernels K1 and K2) and its Annotate
+against the JAX package on the same inputs.
 
 Off the grid of 32, K1 has a ragged last thread; off the grid of 4, the
 step count 2M+W is not a multiple of 4 and the walk's codes stay one a
@@ -107,6 +107,35 @@ def test_walk_matches_jax_both_modes(dp):
             np.testing.assert_array_equal(x, y)
 
 
+def test_banded_sw_plain_matches_jax_and_pallas_at_2048():
+    """Above 1024 (where K1 runs a block of warps a read) the plain
+    version is array-equal to JAX banded_sw and to banded_sw_pallas in
+    interpret mode, at B 8, M 32, W 2048, reads anywhere in the band."""
+    w, m = 2048, M
+    rng = np.random.default_rng(2048)
+    ref = rng.integers(0, 4, (B, m + w)).astype(np.uint8)
+    read = np.empty((B, m), np.uint8)
+    for i in range(B):
+        off = int(rng.integers(0, w))
+        read[i] = ref[i, off: off + m]
+        mut = rng.random(m) < 0.05
+        read[i, mut] = rng.integers(0, 5, mut.sum())
+    lens = np.full(B, m, np.int32)
+    lens[5] = m - 9
+    want = [np.asarray(x) for x in jb.banded_sw(read, ref, lens)]
+    pal = [np.asarray(x) for x in banded_sw_pallas(read, ref, lens)]
+    got = [x.numpy() for x in tb.banded_sw(*_torch(read, ref, lens))]
+    for name, a, p, b in zip(("tb", "best", "best_i", "best_k"), want, pal,
+                             got):
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+        np.testing.assert_array_equal(p, b, err_msg=f"pallas {name}")
+    assert got[1].min() > 0 and got[3].max() > 1024
+    codes = np.asarray(jb.walk_device(want[0], want[2], want[3]))
+    np.testing.assert_array_equal(
+        codes, tb.walk(*_torch(got[0], got[2], got[3]), packed=False)[0])
+
+
 @pytest.fixture(scope="module")
 def raw_reads(tmp_path_factory):
     """The case group of test_torch_e2e.py's chain: 12 raw reads of a
@@ -122,11 +151,12 @@ def raw_reads(tmp_path_factory):
     return root, fasta, raw
 
 
-@pytest.mark.parametrize("width", [130, 132])
+@pytest.mark.parametrize("width", [130, 132, 1100, 2050])
 def test_annotate_band_width_matches_jax(raw_reads, width):
-    """Annotate at a band width off the grid of 32, with 2M+W off (130:
-    mode "codes") and on (132: "codes2") the grid of 4, writes the JAX
-    package's corrected FAST5s byte for byte."""
+    """Annotate at a band width off the grid of 32, with 2M+W off (130,
+    2050: mode "codes") and on (132, 1100: "codes2") the grid of 4, and
+    above 1024 (1100, 2050: K1's block of warps a read on the card),
+    writes the JAX package's corrected FAST5s byte for byte."""
     root, fasta, raw = raw_reads
     dirs = {}
     for impl in ("jax", "torch"):
@@ -144,3 +174,17 @@ def test_annotate_band_width_matches_jax(raw_reads, width):
         with open(os.path.join(dirs["torch"], name), "rb") as f:
             got = f.read()
         assert got == want, f"{name} differs at band_width={width}"
+
+
+@pytest.mark.parametrize("m,w,sub,want", [
+    (1024, 128, 256, 256), (4096, 2048, 256, 256), (4096, 4096, 256, 256),
+    (4096, 4100, 256, 128), (8192, 8192, 256, 64), (16384, 32768, 256, 8),
+    (256, 32768, 8, 8)])
+def test_dp_sub_batch_fits_the_traceback_budget(m, w, sub, want):
+    """The DP sub-batch stays dp_batch_size until its [B, M, tb_pitch(W)]
+    traceback would pass TB_BUDGET; then it halves until it fits."""
+    from nanomod_tpu_torch.resquiggle.banded_kernel import tb_pitch
+    from nanomod_tpu_torch.resquiggle.pipeline import TB_BUDGET, _fit_batch
+    got = _fit_batch(sub, m, w)
+    assert got == want
+    assert got * m * tb_pitch(w) <= TB_BUDGET or got == 1

@@ -134,16 +134,73 @@ def test_k2_start_outside_the_matrix(dev):
                        banded.walk_packed_plain(tbm, bi, bk))
 
 
+def _wide_reads(rng, b, m, w):
+    """Reads that start anywhere in their band (so that walks cross the
+    warps' boundaries), with substitutions, deletions and insertions, some
+    shorter than M."""
+    ref = rng.integers(0, 4, (b, m + w)).astype(np.uint8)
+    read = np.full((b, m), 4, np.uint8)
+    lens = np.empty(b, np.int32)
+    for i in range(b):
+        off = int(rng.integers(0, w))
+        s = ref[i, off:off + m + m // 4].copy()
+        r = rng.random(len(s))
+        s[r < 0.05] = rng.integers(0, 4, int((r < 0.05).sum()))
+        rep = np.where(r > 0.97, 0, np.where(r > 0.94, 2, 1))
+        seq = np.repeat(s, rep)[:m]
+        lens[i] = len(seq) if i % 2 else int(rng.integers(m // 2, m + 1))
+        read[i, :lens[i]] = seq[:lens[i]]
+    return read, ref, lens
+
+
+@pytest.mark.parametrize("w", [1025, 1100, 2048, 2050, 4096, 4100, 8192,
+                               9000, 16385, 32768])
+def test_k1_k2_wide_bands_match_plain(dev, w):
+    """Band widths above 1024: K1 with a block of warps a read (ragged last
+    warp off the grid of 32 lanes a thread) and K2 walking in windows; a
+    compact copy of the traceback walks alike."""
+    rng = np.random.default_rng(w)
+    m = 96 if w > 8192 else 200
+    got = _k1_k2_equal(dev, *_wide_reads(rng, 6, m, w))
+    tbm, _, bi, bk = got
+    assert torch.equal(banded.walk(tbm.contiguous(), bi, bk, packed=False)[0],
+                       banded.walk_device_plain(tbm, bi, bk))
+
+
+@pytest.mark.parametrize("w", [1056, 2048])
+def test_k1_k2_wide_ties_and_mismatch(dev, w):
+    rng = np.random.default_rng(w + 1)
+    got = _k1_k2_equal(dev, *_ties(rng, 9, 160, w))
+    assert got[1].min() > 0
+    got = _k1_k2_equal(dev, *_mismatch(rng, 5, 64, w))
+    assert float(got[1].abs().max()) == 0.0
+
+
+def test_k2_wide_start_outside_the_matrix(dev):
+    rng = np.random.default_rng(5)
+    read, ref, lens = (torch.from_numpy(x).to(dev)
+                       for x in _wide_reads(rng, 24, 128, 2048))
+    tbm = banded.banded_sw(read, ref, lens)[0]
+    bi = torch.from_numpy(rng.integers(-2, 128 + 3, 24).astype(np.int32))
+    bk = torch.from_numpy(rng.integers(-2, 2048 + 3, 24).astype(np.int32))
+    bi[:4] = torch.tensor([128, 200, -1, 100], dtype=torch.int32)
+    bk[:4] = torch.tensor([-1, 2048, 5, 2049], dtype=torch.int32)
+    bi, bk = bi.to(dev), bk.to(dev)
+    assert torch.equal(banded.walk(tbm, bi, bk, packed=True)[0],
+                       banded.walk_packed_plain(tbm, bi, bk))
+
+
 def test_k1_rejects_bad_band(dev):
-    """Above 1024 band lanes (32 a thread) K1 raises; the walk too."""
+    """Above 32,768 band lanes (32 warps of 32 a thread) K1 raises; the
+    walk too."""
     read = torch.zeros((2, 64), dtype=torch.uint8, device=dev)
-    ref = torch.zeros((2, 64 + 2048), dtype=torch.uint8, device=dev)
+    ref = torch.zeros((2, 64 + 32769), dtype=torch.uint8, device=dev)
     lens = torch.full((2,), 64, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match=r"in \[1, 1024\]"):
+    with pytest.raises(ValueError, match=r"in \[1, 32768\]"):
         banded.banded_sw(read, ref, lens)
     z = torch.zeros(2, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match=r"in \[1, 1024\]"):
-        banded.walk(torch.zeros((2, 64, 2048), dtype=torch.uint8,
+    with pytest.raises(ValueError, match=r"in \[1, 32768\]"):
+        banded.walk(torch.zeros((2, 64, 32769), dtype=torch.uint8,
                                 device=dev), z, z)
 
 

@@ -140,13 +140,13 @@ def test_prepare_and_alignment_match_jax(chain):
 
 
 @pytest.mark.parametrize("kw", [dict(align="bwa"),
-                                dict(band_width=2048, device="cuda"),
+                                dict(band_width=32769, device="cuda"),
                                 dict(use_native=False),
                                 dict(use_device_walk=False)])
 def test_annotate_unported_options_raise(chain, kw):
     """What the port still refuses, before any device work (so the CUDA
     case runs without a card): the external aligners, the non-native
-    paths, and a band width above 1024 on the card."""
+    paths, and a band width above 32,768 on the card."""
     from nanomod_tpu_torch.resquiggle.pipeline import process_prepared
     kw = dict(kw)
     device = kw.pop("device", "cpu")
@@ -157,13 +157,14 @@ def test_annotate_unported_options_raise(chain, kw):
 
 @pytest.mark.parametrize("width,device,ok", [
     (130, "cpu", True), (132, "cpu", True), (132, "cuda", True),
-    (96, "cuda", True), (2048, "cuda", False), (1, "cuda", True),
-    (1024, "cuda", True), (1025, "cuda", False), (2048, "cpu", True)])
+    (96, "cuda", True), (2048, "cuda", True), (1, "cuda", True),
+    (1024, "cuda", True), (1025, "cuda", True), (2048, "cpu", True),
+    (32768, "cuda", True), (32769, "cuda", False)])
 def test_annotate_band_width_checked(width, device, ok):
     """The reference runs any band width; so does the port, but for a
-    width above 1024 on the card (K1 and K2 hold at most 32 band lanes a
-    thread).  The check comes before any device work, so the CUDA cases
-    run without a card."""
+    width above 32,768 on the card (K1 holds at most 32 warps of 32 band
+    lanes a thread).  The check comes before any device work, so the CUDA
+    cases run without a card."""
     from nanomod_tpu_torch.resquiggle.pipeline import _check_supported
     cfg = tcfg.AnnotateConfig(band_width=width)
     if ok:

@@ -57,10 +57,13 @@ def _elsewhere(cards, fn, *arrays):
     return [g.cpu() for g in listed(got)], listed(want)
 
 
-def test_k1_k2_on_a_card_that_is_not_current(cards):
+@pytest.mark.parametrize("w", [128, 2048])
+def test_k1_k2_on_a_card_that_is_not_current(cards, w):
+    """A warp a read (W 128) and a block of warps a read with the windowed
+    walk (W 2048)."""
     from nanomod_tpu_torch.resquiggle import banded
     rng = np.random.default_rng(1)
-    b, m, w = 37, 256, 128
+    b, m = 37, 256
     ref = rng.integers(0, 4, (b, m + w)).astype(np.uint8)
     read = ref[:, w // 2: w // 2 + m].copy()
     lens = rng.integers(1, m + 1, b).astype(np.int32)

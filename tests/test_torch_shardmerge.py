@@ -165,11 +165,10 @@ def _pdf_pages(path):
     return data.count(b"/Type /Page") - data.count(b"/Type /Pages")
 
 
-def test_sharded_detect_plots_raise(dataset, tmp_path):
-    """make_plots under the sharded merge, which once raised (the name is
-    kept from then, so that the test's history stays one line): the
-    owners of the top sites gather their window data to rank 0, which
-    draws one rplot_<FileID>.pdf with as many pages as the JAX package's
+def test_sharded_detect_plots_match_jax_pages(dataset, tmp_path):
+    """make_plots under the sharded merge: the owners of the top sites
+    gather their window data to rank 0, which draws one
+    rplot_<FileID>.pdf with as many pages as the JAX package's
     single-host run."""
     single = str(tmp_path / "jax")
     jax_run_detect(_cfg(jcfg, dataset, single, make_plots=True))
