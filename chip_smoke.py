@@ -120,7 +120,24 @@ Phase 7  the multi-device and multi-process paths.  (a) K7, the neighbor
          200-200 --mstd 1) byte-equal to phases 3 and 5, K3 (and K6)
          launched in every rank's metrics file; ``cli Annotate`` on fresh
          copies of the raw smoke groups: every corrected FAST5 byte-equal
-         to phase 3's, each rank reporting the merged ok count.
+         to phase 3's, each rank reporting the merged ok count.  (f) the
+         pooled layout of distributed_detect_step (65,536 x 64 over the 4
+         shards): its reshuffle and K3 timed apart, beside the bytes bound
+         of pooled_rank_components.
+Phase 8  (a) the external aligner: a fake ``minimap2`` (the tests' own, an
+         exact-substring aligner writing SAM) at the front of PATH, then
+         ``cli Annotate --alignStr minimap2`` with ``--device cuda`` and
+         ``--device cpu`` on copies of the raw smoke groups: every
+         corrected FAST5 byte-equal between the two; ``cli detect --device
+         cuda`` on the externally aligned groups (planted site first, K3
+         launched).  Where a real minimap2 or bwa is on PATH it also
+         annotates the control group once and prints its ok count.  (b)
+         the bench, ``nanomod_tpu_torch.bench``'s main at its default
+         sizes (200,000 battery positions, 512 raw reads of 2 kb, the
+         e2e detect on a 4,000-base genome), in process with the launch
+         counts set to 0 before it: its JSON line printed, the planted
+         site (4000 // 3) first, 512 reads annotated, K1, K2 and K3
+         launched.
 
 Kernel times are medians of 3 samples after one warm-up, each sample 10
 back-to-back calls between two CUDA events, divided by 10 (the ``ms`` of
@@ -247,6 +264,12 @@ SHARDED_COV = 60
 K7_OPS = 12
 K9_OPS = 4
 TORCHRUN_TIMEOUT = 600
+# phase 8: copies of each raw smoke read in the external-aligner groups (16
+# reads a group, 256 a group in all); the bench's planted site and reads
+# at its default sizes (nanomod_tpu_torch/bench.py)
+EXT_COPIES = 16
+BENCH_SITE = 4000 // 3
+BENCH_READS = 512
 # phase 3's Annotate at other band widths, {W: reads}: off the grids (130:
 # 2M+W not a multiple of 4, the unpacked walk; 16 smoke reads, 16 copies
 # each) and above 1024 (2048: K1's block of warps a read, K2's windowed
@@ -271,6 +294,63 @@ TRACE_SITE = 250_000
 TRACE_SITE_LEN = 8
 TRACE_SHIFT = 3.0
 TRACE_WRITE_BATCH = 256
+
+# the tests' fake minimap2 (tests/test_external_align.py; the same text,
+# held equal by tests/test_torch_external.py), written into a bin/ at the
+# front of PATH for phase 8
+FAKE_MINIMAP2 = '''#!/usr/bin/env python3
+"""Fake minimap2: exact/approximate substring alignment, SAM to stdout.
+
+Usage (what the engine invokes): minimap2 -ax map-ont ref.fa reads.fa
+"""
+import sys
+
+
+def revcomp(s):
+    return s.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
+def read_fasta(path):
+    seqs, name = {}, None
+    for line in open(path):
+        line = line.strip()
+        if line.startswith(">"):
+            name = line[1:].split()[0]
+            seqs[name] = []
+        elif name:
+            seqs[name].append(line)
+    return {k: "".join(v) for k, v in seqs.items()}
+
+
+ref = read_fasta(sys.argv[-2])
+reads = read_fasta(sys.argv[-1])
+print("@HD\\tVN:1.6")
+for chrom, seq in ref.items():
+    print(f"@SQ\\tSN:{chrom}\\tLN:{len(seq)}")
+for rid, rseq in reads.items():
+    hit = None
+    # anchor on a 24-mer from the middle of the read, allow mismatches
+    k = 24
+    mid = len(rseq) // 2
+    for flag, oriented in ((0, rseq), (16, revcomp(rseq))):
+        kmer = oriented[mid - k // 2: mid + k // 2]
+        for chrom, g in ref.items():
+            p = g.find(kmer)
+            if p >= 0:
+                start = p - (mid - k // 2)
+                if 0 <= start and start + len(oriented) <= len(g):
+                    hit = (flag, chrom, start, oriented)
+                break
+        if hit:
+            break
+    if hit is None:
+        print(f"{rid}\\t4\\t*\\t0\\t0\\t*\\t*\\t0\\t0\\t{rseq}\\t*")
+        continue
+    flag, chrom, start, oriented = hit
+    cigar = f"{len(oriented)}M"
+    print(f"{rid}\\t{flag}\\t{chrom}\\t{start + 1}\\t60\\t{cigar}\\t*\\t0\\t0"
+          f"\\t{oriented}\\t*")
+'''
 
 
 def log(*a):
@@ -803,6 +883,17 @@ def _env():
     return env
 
 
+def _copy_group(src, dst, copies):
+    """Copy each FAST5 of ``src`` ``copies`` times into a new ``dst``
+    (<stem>_<k>.fast5)."""
+    os.makedirs(dst)
+    for name in sorted(os.listdir(src)):
+        stem = name[: -len(".fast5")]
+        for k in range(copies):
+            shutil.copyfile(os.path.join(src, name),
+                            os.path.join(dst, f"{stem}_{k:02d}.fast5"))
+
+
 def phase3(torch, dev, tmp):
     from nanomod_tpu_torch.config import DetectConfig, RankConfig
     from nanomod_tpu_torch.detect import run_detect
@@ -810,14 +901,8 @@ def phase3(torch, dev, tmp):
     env = _env()
     groups = {}
     for group in ("ctrl", "case"):
-        dst = os.path.join(tmp, group)
-        os.makedirs(dst)
-        for name in sorted(os.listdir(os.path.join(data, group))):
-            stem = name[: -len(".fast5")]
-            for k in range(COPIES):
-                shutil.copyfile(os.path.join(data, group, name),
-                                os.path.join(dst, f"{stem}_{k:02d}.fast5"))
-        groups[group] = dst
+        groups[group] = os.path.join(tmp, group)
+        _copy_group(os.path.join(data, group), groups[group], COPIES)
     # both groups at once, each its own CLI process on the card
     mfiles = {g: os.path.join(tmp, f"annotate_{g}.json") for g in groups}
     outs = _cli_all({g: (["Annotate", "--wrkBase1", folder,
@@ -1048,12 +1133,7 @@ def phase3_band_width(torch, dev, tmp, width, n_reads):
     dirs = {}
     for where in ("cuda", "cpu"):
         dirs[where] = os.path.join(tmp, f"w{width}_{where}")
-        os.makedirs(dirs[where])
-        for name in names:
-            for k in range(copies):
-                shutil.copyfile(os.path.join(data, "ctrl", name),
-                                os.path.join(dirs[where],
-                                             f"{name[:-6]}_{k:02d}.fast5"))
+        _copy_group(os.path.join(data, "ctrl"), dirs[where], copies)
     modes = []
     dispatch = pipeline.dispatch_dp
 
@@ -1836,6 +1916,7 @@ def phase7_main_paths(torch, dev, tmp, groups, events):
            "step_launches": step_launches,
            "step_shapes": {"reads": list(reads[0].shape), "pooled": [pp, nn]}}
     log("phase7 main paths", json.dumps(res))
+    res["pooled"] = phase7_pooled(torch, m2, z, lab, n1, n2)
     return res
 
 
@@ -1909,14 +1990,8 @@ def phase7_two_processes(tmp, groups, p3):
 
     fresh = {}
     for group in ("ctrl", "case"):
-        dst = os.path.join(tmp, f"mp_raw_{group}")
-        os.makedirs(dst)
-        for name in sorted(os.listdir(os.path.join(data, group))):
-            stem = name[: -len(".fast5")]
-            for k in range(COPIES):
-                shutil.copyfile(os.path.join(data, group, name),
-                                os.path.join(dst, f"{stem}_{k:02d}.fast5"))
-        fresh[group] = dst
+        fresh[group] = os.path.join(tmp, f"mp_raw_{group}")
+        _copy_group(os.path.join(data, group), fresh[group], COPIES)
     t0 = time.perf_counter()
     outs = _torchrun_all({
         f"ann_{g}": ["Annotate", "--wrkBase1", folder, "--Ref",
@@ -1950,6 +2025,159 @@ def phase7_two_processes(tmp, groups, p3):
     res = {"detect_s": detect_s, "annotate_s": annotate_s,
            "reads_ok": reads_ok, "launches": launches}
     log("phase7 two processes", json.dumps(res))
+    return res
+
+
+def pooled_work(torch, shards):
+    """pooled_rank_components' bytes over the shards (z and lab read, n1
+    and n2 read, d, two_rank_sum and tie_sum written) and the operations
+    of a sort-and-merge evaluation of every row (k3_work, no moments)."""
+    from nanomod_tpu_torch.stats import kernels
+    nbytes, ops = 0, 0
+    for z, lab, n1, n2 in shards:
+        nbytes += z.nbytes + lab.nbytes + n1.nbytes + n2.nbytes \
+            + 12 * z.shape[0]
+        work = k3_work(torch, *kernels.pooled_groups(z, lab), milli=False)
+        ops += work.get("f32_ops", 0)
+    return dict(bytes_moved=nbytes, f32_ops=ops)
+
+
+def phase7_pooled(torch, m2, z, lab, n1, n2):
+    """(f) pooled_rank_components over the mesh's shards: the layout
+    reshuffle (pooled_groups) and K3 (battery_rows_cuda) timed apart, then
+    the whole function, beside its bound."""
+    from nanomod_tpu_torch.parallel.mesh import shard_pools_over_positions
+    from nanomod_tpu_torch.stats import kernels
+    shards = shard_pools_over_positions(m2, z, lab, n1, n2)
+    groups = [kernels.pooled_groups(zs, ls) for zs, ls, _, _ in shards]
+    res = {"shards": len(shards), "shard_shape": list(shards[0][0].shape),
+           "reshuffle_ms": time_ms(torch, lambda: [
+               kernels.pooled_groups(zs, ls) for zs, ls, _, _ in shards]),
+           "k3_ms": time_ms(torch, lambda: [
+               kernels.battery_rows_cuda(*g, milli=False) for g in groups]),
+           "ms": time_ms(torch, lambda: [
+               kernels.pooled_rank_components(*sh) for sh in shards])}
+    res["bound_ms"], res["bound_by"] = bound(**pooled_work(torch, shards))
+    log("phase7 pooled", json.dumps(res))
+    return res
+
+
+def phase8_external(tmp):
+    """(a) ``cli Annotate --alignStr minimap2`` with the fake aligner on the
+    card and on the CPU (byte-equal), detect on the card over the result,
+    and a real aligner once where one is on PATH."""
+    data = os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data")
+    root = os.path.join(tmp, "external")
+    bindir = os.path.join(root, "bin")
+    os.makedirs(bindir)
+    exe = os.path.join(bindir, "minimap2")
+    with open(exe, "w") as f:
+        f.write(FAKE_MINIMAP2)
+    os.chmod(exe, 0o755)
+    # the aligners read the reference, and bwa indexes it, in a copy
+    ref = os.path.join(root, "ref.fa")
+    shutil.copyfile(os.path.join(data, "ref.fa"), ref)
+    real = [a for a in ("minimap2", "bwa") if shutil.which(a)]
+    env = _env()
+    env["PATH"] = bindir + os.pathsep + env.get("PATH", "")
+    jobs, folders, mfiles = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        for group in ("ctrl", "case"):
+            name = f"{device}_{group}"
+            folders[name] = os.path.join(root, name)
+            _copy_group(os.path.join(data, group), folders[name], EXT_COPIES)
+            mfiles[name] = os.path.join(root, f"annotate_{name}.json")
+            jobs[name] = (["Annotate", "--wrkBase1", folders[name], "--Ref",
+                           ref, "--alignStr", "minimap2", "--device", device,
+                           "--metricsFile", mfiles[name]], env)
+    t0 = time.perf_counter()
+    outs = _cli_all(jobs)
+    res = {"annotate_s": time.perf_counter() - t0, "reads_ok": {},
+           "align_ext_s": {}}
+    n_files = EXT_COPIES * len(os.listdir(os.path.join(data, "ctrl")))
+    for name in jobs:
+        log(f"phase8 Annotate --alignStr minimap2 {name}:",
+            outs[name].strip().splitlines()[-1])
+        with open(mfiles[name]) as f:
+            m = json.load(f)
+        res["reads_ok"][name] = m["reads_ok"]
+        res["align_ext_s"][name] = m["stages"]["align_ext"]["seconds"]
+        # the fake aligner anchors an exact 24-mer, which a smoke read's
+        # basecall errors can break (11 and 12 of 16 reads a group map, as
+        # in the JAX package: tests/test_torch_external.py)
+        if m["reads_ok"] < 0.5 * n_files or "align_dp" in m["stages"]:
+            raise AssertionError(f"external Annotate {name}: {m['reads_ok']} "
+                                 f"of {n_files} reads, stages "
+                                 f"{list(m['stages'])}")
+    for group in ("ctrl", "case"):
+        a, b = folders[f"cuda_{group}"], folders[f"cpu_{group}"]
+        if res["reads_ok"][f"cuda_{group}"] != res["reads_ok"][f"cpu_{group}"]:
+            raise AssertionError(f"external Annotate {group}: the card and "
+                                 f"the CPU annotated different reads")
+        for name in sorted(os.listdir(a)):
+            if _read_bytes(os.path.join(a, name)) != \
+                    _read_bytes(os.path.join(b, name)):
+                raise AssertionError(f"external Annotate {group}/{name}: the "
+                                     f"card's file differs from the CPU's")
+    dfile = os.path.join(root, "detect.json")
+    out = _cli(["detect", "--wrkBase1", folders["cuda_ctrl"], "--wrkBase2",
+                folders["cuda_case"], "--outFolder",
+                os.path.join(root, "out"), "--min_lr", "0", "--device",
+                "cuda", "--metricsFile", dfile], env)
+    with open(dfile) as f:
+        m = json.load(f)
+    rank1 = out.split("Rank 1:")[1].split("\n")[0].split()
+    log("phase8 detect Rank 1:", " ".join(rank1))
+    if int(rank1[2]) != SMOKE_MOD_POS + 1:
+        raise AssertionError(f"planted site {SMOKE_MOD_POS + 1} is not "
+                             f"ranked first after the external aligner: "
+                             f"{rank1}")
+    res["detect_launches"] = m["kernel_launches"]
+    res["detect_positions"] = m["positions"]
+    if m["kernel_launches"]["battery"] <= 0:
+        raise AssertionError(f"detect after the external aligner did not "
+                             f"launch K3: {m['kernel_launches']}")
+    res["real_aligners"] = {}
+    for align in real:
+        folder = os.path.join(root, f"real_{align}")
+        _copy_group(os.path.join(data, "ctrl"), folder, 1)
+        mfile = os.path.join(root, f"real_{align}.json")
+        _cli(["Annotate", "--wrkBase1", folder, "--Ref", ref, "--alignStr",
+              align, "--device", "cuda", "--metricsFile", mfile], _env())
+        with open(mfile) as f:
+            res["real_aligners"][align] = json.load(f)["reads_ok"]
+        log(f"phase8 real {align}: n_ok", res["real_aligners"][align])
+    log("phase8 external", json.dumps(res))
+    return res
+
+
+def phase8_bench(torch):
+    """(b) the bench at its default sizes, in process, with the launch
+    counts set to 0 just before it and read just after."""
+    import contextlib
+    import io
+    from nanomod_tpu_torch import bench
+    from nanomod_tpu_torch.kernels import build as kbuild
+    captured = io.StringIO()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(captured):
+        line = bench.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kbuild.launch_counts()
+    log("phase8 bench line", json.dumps(line))
+    res = {"seconds": seconds, "launches": launches}
+    log("phase8 bench", json.dumps(res))
+    if line["e2e"]["top_site_pos"] != BENCH_SITE:
+        raise AssertionError(f"bench e2e: the planted site {BENCH_SITE} is "
+                             f"not first: {line['e2e']}")
+    if line["secondary"]["n_ok"] != BENCH_READS:
+        raise AssertionError(f"bench Annotate: {line['secondary']['n_ok']} "
+                             f"of {BENCH_READS} reads annotated")
+    if min(launches[k] for k in PHASE3_KERNELS) <= 0:
+        raise AssertionError(f"the bench did not launch K1, K2 and K3: "
+                             f"{launches}")
     return res
 
 
@@ -1999,6 +2227,10 @@ def main() -> int:
         phase7_sharded_battery(torch, dev)
         p7_main = phase7_main_paths(torch, dev, tmp, groups, events)
         phase7_two_processes(tmp, groups, p3)
+        t8 = time.perf_counter()
+        phase8_external(tmp)
+        phase8_bench(torch)
+        log("phase8", json.dumps({"seconds": time.perf_counter() - t8}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if "jax" in sys.modules:

@@ -2,11 +2,14 @@
 // writer without libhdf5, for the scale tools on a machine with no h5py.
 //
 // It writes, as a whole new file, what the reference's
-// tools/scale_fullchain.py gen_raw_group writes with h5py:
+// tools/scale_fullchain.py gen_raw_group and tests/fixtures.py
+// write_raw_fixture write with h5py:
 //
 //   /UniqueGlobalKey/channel_id     attrs digitisation, offset, range,
-//                                   sampling_rate (f64)
-//   /Raw/Reads/Read_<n>             attr read_id (variable-length UTF-8)
+//                                   sampling_rate (f64), and where given
+//                                   channel_number (variable-length ASCII)
+//   /Raw/Reads/Read_<n>             attrs start_time (i64, where given) and
+//                                   read_id (variable-length UTF-8)
 //   /Raw/Reads/Read_<n>/Signal      int16 [samples]
 //   /Analyses/<basecall group>      attrs name, version (variable-length
 //                                   ASCII: h5py's type for bytes)
@@ -18,7 +21,9 @@
 // in the layout h5py gives a file by default and the native readers and
 // the corrected writer parse: superblock v0, v1 object headers, old-style
 // (symbol-table) groups, contiguous datasets, one global heap collection
-// for the variable-length strings.  It compiles the port's copy of
+// for the variable-length strings.  rw_write_empty writes a file that holds
+// only its root group, as h5py.File(path, "w") leaves one, for the corrected
+// writer to fill.  It compiles the port's copy of
 // fast5_write.cpp into the same unit and reuses its emitters (symbol
 // tables, object headers, datatypes), so the seven copied sources stay
 // byte-equal to the reference's.  The library is rebuilt when this file or
@@ -160,6 +165,9 @@ struct RawRead {
     const u8* fastq; u64 n_fastq;
     const double* channel;                  // digitisation, offset, range,
                                             // sampling_rate
+    const char* channel_number;             // nullptr: no such attribute
+    bool has_start_time;
+    i64 start_time;
 };
 
 struct Names {
@@ -180,6 +188,45 @@ u64 group(WBuf& w, std::vector<NamedChild> kids, std::vector<Msg> attrs = {}) {
     return emit_object_header(w, msgs);
 }
 
+const u64 SB = 96;                          // superblock v0, 8-byte sizes
+
+// the root group (its symbol table, then its object header) and the
+// superblock; the whole file into `out`
+void finish_file(WBuf& w, std::vector<NamedChild> kids, std::vector<u8>& out) {
+    auto root_tab = emit_symbol_table(w, std::move(kids), LEAF_K, INTERN_K);
+    u64 root = emit_object_header(w, {msg_stab(root_tab.first,
+                                               root_tab.second)});
+    w.pad_to(8);
+    const u64 eof = w.v.size();
+
+    // superblock v0
+    std::vector<u8>& v = w.v;
+    const u8 sig8[8] = {0x89, 'H', 'D', 'F', '\r', '\n', 0x1a, '\n'};
+    memcpy(v.data(), sig8, 8);
+    const u8 vers[8] = {0, 0, 0, 0, 0, 8, 8, 0};  // versions, sizes
+    memcpy(v.data() + 8, vers, 8);
+    v[16] = (u8)LEAF_K;                     // group leaf and internal K (u16)
+    v[18] = (u8)INTERN_K;
+    // consistency flags (4 bytes) stay 0
+    w.patch_u64(24, 0);                     // base address
+    w.patch_u64(32, UNDEF);                 // free-space info
+    w.patch_u64(40, eof);                   // end of file
+    w.patch_u64(48, UNDEF);                 // no storage-layer block
+    w.patch_u64(56, 0);                     // root entry: link name offset
+    w.patch_u64(64, root);                  // root object header
+    v[72] = 1;                              // cache type 1: btree, heap
+    w.patch_u64(80, root_tab.first);
+    w.patch_u64(88, root_tab.second);
+    out.swap(v);
+}
+
+int save(const char* path, const std::vector<u8>& out) {
+    FILE* f = fopen(path, "wb");
+    if (!f) return -1;
+    const bool ok = fwrite(out.data(), 1, out.size(), f) == out.size();
+    return (fclose(f) == 0 && ok) ? 0 : -4;
+}
+
 int write_raw(const char* path, const RawRead& r, const Names& nm) {
     if (r.n_signal == 0 || r.n_events == 0 || r.n_fastq == 0) return -10;
     std::vector<u8> out;
@@ -187,28 +234,37 @@ int write_raw(const char* path, const RawRead& r, const Names& nm) {
         WBuf w;
         w.tail_base = 0;
         w.base = 0;
-        const u64 SB = 96;                  // superblock v0, 8-byte sizes
         w.zeros(SB);
 
         // the variable-length strings, as h5py stores str and bytes
         std::string rid(r.read_id), fq((const char*)r.fastq, r.n_fastq);
-        u64 gcol = emit_global_heap(w, {rid, nm.bc_name, nm.bc_version, fq});
+        std::vector<std::string> strings{rid, nm.bc_name, nm.bc_version, fq};
+        if (r.channel_number) strings.push_back(r.channel_number);
+        u64 gcol = emit_global_heap(w, strings);
 
-        // /Raw/Reads/Read_<n>
+        // /Raw/Reads/Read_<n> (attribute order as h5py sets them)
         u64 sig = emit_contiguous(w, r.signal, r.n_signal, 2,
                                   dtype_of(dt_i16_), false);
-        u64 rd = group(w, {{"Signal", sig}},
-                       {msg_attr_vlen_str("read_id", true, rid.size(), gcol,
-                                          1)});
+        std::vector<Msg> rd_attrs;
+        if (r.has_start_time)
+            rd_attrs.push_back(msg_attr_scalar_i64("start_time",
+                                                   r.start_time));
+        rd_attrs.push_back(msg_attr_vlen_str("read_id", true, rid.size(),
+                                             gcol, 1));
+        u64 rd = group(w, {{"Signal", sig}}, std::move(rd_attrs));
         std::string read_name = "Read_" + std::to_string(r.read_number);
         u64 raw = group(w, {{"Reads", group(w, {{read_name, rd}})}});
 
-        // /UniqueGlobalKey/channel_id (attribute order as h5py sets them)
-        u64 ch = group(w, {},
-                       {msg_attr_scalar_f64("digitisation", r.channel[0]),
-                        msg_attr_scalar_f64("offset", r.channel[1]),
-                        msg_attr_scalar_f64("range", r.channel[2]),
-                        msg_attr_scalar_f64("sampling_rate", r.channel[3])});
+        // /UniqueGlobalKey/channel_id
+        std::vector<Msg> ch_attrs{
+            msg_attr_scalar_f64("digitisation", r.channel[0]),
+            msg_attr_scalar_f64("offset", r.channel[1]),
+            msg_attr_scalar_f64("range", r.channel[2]),
+            msg_attr_scalar_f64("sampling_rate", r.channel[3])};
+        if (r.channel_number)
+            ch_attrs.push_back(msg_attr_vlen_str(
+                "channel_number", false, strlen(r.channel_number), gcol, 5));
+        u64 ch = group(w, {}, std::move(ch_attrs));
         u64 ug = group(w, {{"channel_id", ch}});
 
         // /Analyses/<basecall group>/<template>/{Events, Fastq}
@@ -224,44 +280,28 @@ int write_raw(const char* path, const RawRead& r, const Names& nm) {
                         msg_attr_vlen_str("version", false,
                                           strlen(nm.bc_version), gcol, 3)});
         u64 an = group(w, {{nm.basecall_group, bc}});
-
-        // the root group
-        auto root_tab = emit_symbol_table(
-            w, {{"UniqueGlobalKey", ug}, {"Raw", raw}, {"Analyses", an}},
-            LEAF_K, INTERN_K);
-        u64 root = emit_object_header(
-            w, {msg_stab(root_tab.first, root_tab.second)});
-        w.pad_to(8);
-        const u64 eof = w.v.size();
-
-        // superblock v0
-        std::vector<u8>& v = w.v;
-        const u8 sig8[8] = {0x89, 'H', 'D', 'F', '\r', '\n', 0x1a, '\n'};
-        memcpy(v.data(), sig8, 8);
-        const u8 vers[8] = {0, 0, 0, 0, 0, 8, 8, 0};  // versions, sizes
-        memcpy(v.data() + 8, vers, 8);
-        v[16] = (u8)LEAF_K;                 // group leaf and internal K (u16)
-        v[18] = (u8)INTERN_K;
-        // consistency flags (4 bytes) stay 0
-        w.patch_u64(24, 0);                 // base address
-        w.patch_u64(32, UNDEF);             // free-space info
-        w.patch_u64(40, eof);               // end of file
-        w.patch_u64(48, UNDEF);             // no storage-layer block
-        w.patch_u64(56, 0);                 // root entry: link name offset
-        w.patch_u64(64, root);              // root object header
-        v[72] = 1;                          // cache type 1: btree, heap
-        w.patch_u64(80, root_tab.first);
-        w.patch_u64(88, root_tab.second);
-        out.swap(v);
+        finish_file(w, {{"UniqueGlobalKey", ug}, {"Raw", raw},
+                        {"Analyses", an}}, out);
     } catch (const ParseError&) {
         return -2;
     } catch (const std::exception&) {
         return -5;
     }
-    FILE* f = fopen(path, "wb");
-    if (!f) return -1;
-    const bool ok = fwrite(out.data(), 1, out.size(), f) == out.size();
-    return (fclose(f) == 0 && ok) ? 0 : -4;
+    return save(path, out);
+}
+
+int write_empty(const char* path) {
+    std::vector<u8> out;
+    try {
+        WBuf w;
+        w.tail_base = 0;
+        w.base = 0;
+        w.zeros(SB);
+        finish_file(w, {}, out);
+    } catch (const std::exception&) {
+        return -5;
+    }
+    return save(path, out);
 }
 
 }  // namespace
@@ -270,14 +310,17 @@ extern "C" {
 
 // Write nfiles raw FAST5s.  Signals, events and fastq texts are
 // concatenated across files with exclusive prefix offsets (nfiles + 1: rows
-// of int16, rows of 41 bytes, bytes); channel holds 4 doubles a file.
-// status_out: 0 written, negative not written.
+// of int16, rows of 41 bytes, bytes); channel holds 4 doubles a file;
+// channel_numbers[i] may be null (no such attribute), and start_times[i]
+// is written where has_start_time[i].  status_out: 0 written, negative not
+// written.
 int rw_write_batch(const char** paths, int nfiles, const i64* read_numbers,
                    const char** read_ids,
                    const u8* signal, const i64* signal_offsets,
                    const u8* events, const i64* event_offsets,
                    const u8* fastq, const i64* fastq_offsets,
-                   const double* channel,
+                   const double* channel, const char** channel_numbers,
+                   const i64* start_times, const u8* has_start_time,
                    const char* basecall_group, const char* template_group,
                    const char* bc_name, const char* bc_version,
                    int nthreads, int32_t* status_out) {
@@ -298,6 +341,9 @@ int rw_write_batch(const char** paths, int nfiles, const i64* read_numbers,
             r.fastq = fastq + fastq_offsets[i];
             r.n_fastq = (u64)(fastq_offsets[i + 1] - fastq_offsets[i]);
             r.channel = channel + 4 * (i64)i;
+            r.channel_number = channel_numbers[i];
+            r.has_start_time = has_start_time[i] != 0;
+            r.start_time = start_times[i];
             status_out[i] = (int32_t)write_raw(paths[i], r, nm);
         }
     };
@@ -307,5 +353,8 @@ int rw_write_batch(const char** paths, int nfiles, const i64* read_numbers,
     for (auto& t : ts) t.join();
     return 0;
 }
+
+// Write a file holding only its root group; 0 written, negative not.
+int rw_write_empty(const char* path) { return write_empty(path); }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """ctypes binding for the port's raw basecalled FAST5 writer
 (native/fast5_rawwrite.cpp): whole new files, as the reference's
-tools/scale_fullchain.py writes them with h5py, without h5py (which the
-card's machine does not have).  Files are written on a C++ thread pool."""
+tools/scale_fullchain.py and tests/fixtures.py write them with h5py,
+without h5py (which the card's machine does not have), and files that hold
+only their root group, for the corrected writer to fill.  Files are
+written on a C++ thread pool."""
 
 from __future__ import annotations
 
@@ -30,9 +32,11 @@ def _lib():
         lib.rw_write_batch.argtypes = [
             _CHARPP, ctypes.c_int, _I64P, _CHARPP,
             _U8P, _I64P, _U8P, _I64P, _U8P, _I64P,
-            ctypes.POINTER(ctypes.c_double),
+            ctypes.POINTER(ctypes.c_double), _CHARPP, _I64P, _U8P,
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
             ctypes.c_char_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int32)]
+        lib.rw_write_empty.restype = ctypes.c_int
+        lib.rw_write_empty.argtypes = [ctypes.c_char_p]
         lib._rw_ready = True
     return lib
 
@@ -54,9 +58,11 @@ def write_raw_batch(paths: List[str], reads: List[dict], *,
                     bc_version: bytes = b"2.3.1", nthreads: int = 8):
     """Write one raw FAST5 a read (created or overwritten).  Each read is a
     dict: ``read_number`` (Read_<n>), ``read_id`` (str), ``signal`` (int16
-    DAC samples), ``events`` (ALBACORE2_EVENT_DTYPE), ``fastq`` (bytes) and
-    ``channel`` (digitisation, offset, range, sampling_rate).  Raises
-    RuntimeError naming the files it could not write."""
+    DAC samples), ``events`` (ALBACORE2_EVENT_DTYPE), ``fastq`` (bytes),
+    ``channel`` (digitisation, offset, range, sampling_rate) and, where
+    given, ``channel_number`` (bytes, a channel_id attribute) and
+    ``start_time`` (int, a Read_<n> attribute).  Raises RuntimeError naming
+    the files it could not write."""
     n = len(paths)
     if n != len(reads):
         raise ValueError("one read a path")
@@ -72,13 +78,19 @@ def write_raw_batch(paths: List[str], reads: List[dict], *,
         [[float(x) for x in r["channel"]] for r in reads], np.float64)
     c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
     c_ids = (ctypes.c_char_p * n)(*[r["read_id"].encode() for r in reads])
+    c_chan = (ctypes.c_char_p * n)(*[r.get("channel_number") for r in reads])
+    has_start = np.array([r.get("start_time") is not None for r in reads],
+                         np.uint8)
+    starts = np.array([int(r.get("start_time") or 0) for r in reads],
+                      np.int64)
     status = np.empty(n, np.int32)
     lib.rw_write_batch(
         c_paths, n, nums.ctypes.data_as(_I64P), c_ids,
         sig.ctypes.data_as(_U8P), sig_off.ctypes.data_as(_I64P),
         ev.ctypes.data_as(_U8P), ev_off.ctypes.data_as(_I64P),
         fq.ctypes.data_as(_U8P), fq_off.ctypes.data_as(_I64P),
-        channel.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        channel.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), c_chan,
+        starts.ctypes.data_as(_I64P), has_start.ctypes.data_as(_U8P),
         basecall_group.encode(), template_group.encode(), bc_name,
         bc_version, int(nthreads), status.ctypes.data_as(
             ctypes.POINTER(ctypes.c_int32)))
@@ -86,3 +98,13 @@ def write_raw_batch(paths: List[str], reads: List[dict], *,
     if bad:
         raise RuntimeError(f"the raw FAST5 writer failed on {len(bad)} "
                            f"file(s): {bad[:5]}")
+
+
+def write_empty(path: str):
+    """Write an HDF5 file that holds only its root group (created or
+    overwritten), as ``h5py.File(path, "w")`` leaves one.  Raises
+    RuntimeError when it cannot."""
+    status = _lib().rw_write_empty(path.encode())
+    if status != 0:
+        raise RuntimeError(f"the raw FAST5 writer failed on {path} "
+                           f"(status {status})")

@@ -15,7 +15,10 @@ copy into pinned memory behind a ``torch.cuda.Event`` that
 ``fetch_outputs`` waits on; the device-walk path (``use_device_walk``:
 the walk's codes packed four a byte, mode "codes2", when the step count
 2M + W is a multiple of 4, else one a byte, mode "codes") is the only
-alignment path; the external aligners raise NotImplementedError.
+DP path.  ``align="bwa"|"minimap2"`` runs the reference's external
+aligner instead of the DP (resquiggle/external.py): one subprocess round
+over every prepared read, then the per-read native correction
+(``annotate_one``) on a thread pool; a missing binary raises.
 ``n_devices > 1`` deals the DP sub-batches round-robin over the first
 min(n_devices, device_count) CUDA devices; under several processes (torch.distributed,
 parallel/dist.py) each rank annotates its round-robin file shard and every
@@ -94,19 +97,22 @@ def _fit_batch(sub: int, m: int, w: int) -> int:
     return sub
 
 
+ALIGNERS = ("dp", "bwa", "minimap2")
+
+
 def _check_supported(cfg: AnnotateConfig, device):
-    """Raise for the reference options this port does not run: a band
-    width above MAX_W (32,768) on the card (K1 holds at most 32 warps of
-    32 band lanes a thread), the external aligners and the non-native
+    """Raise for the options this port does not run: a band width above
+    MAX_W (32,768) on the card (K1 holds at most 32 warps of 32 band lanes
+    a thread), an aligner the reference does not have and the non-native
     paths."""
     from nanomod_tpu_torch.resquiggle.banded_kernel import MAX_W
     w = cfg.band_width
     if torch.device(device).type == "cuda" and w > MAX_W:
         raise NotImplementedError(
             f"band_width={w}: the CUDA kernels take at most {MAX_W}")
-    if cfg.align != "dp":
+    if cfg.align not in ALIGNERS:
         raise NotImplementedError(
-            f"align={cfg.align!r}: external aligners are not ported")
+            f"align={cfg.align!r}: use one of {ALIGNERS}")
     if not (cfg.use_native and cfg.use_device_walk):
         raise NotImplementedError(
             "only the native, device-walk Annotate path is ported "
@@ -147,14 +153,26 @@ def prepare_read(path: str, cfg: AnnotateConfig, seed_index: SeedIndex,
         return None, "No Raw_reads/Signal"
     norm = mad_normalize(raw.raw_signal, span, shift_scale)
     return _wrap_with_hit(path, raw.read_id, ev.seq, ev.start, ev.length,
-                          norm, seed_index.best_band(ev.seq))
+                          norm, seed_index.best_band(ev.seq),
+                          require_seed=(cfg.align == "dp"))
 
 
 def _wrap_with_hit(path, read_id, seq, ev_start, ev_length, norm_signal,
-                   hit):
-    """Build the PreparedRead for a seeded read."""
+                   hit, require_seed: bool = True):
+    """Build the PreparedRead for a seeded (or unseeded) read.
+
+    require_seed=False (external-aligner mode): an unseeded read is kept
+    with '+' orientation and no chrom; the SAM record decides chrom and
+    strand later (resquiggle/external.py updates the PreparedRead in
+    place)."""
     if hit is None or hit.votes < 3:
-        return None, "Not in alignment sam"
+        if require_seed:
+            return None, "Not in alignment sam"
+        return PreparedRead(
+            path=path, read_id=read_id, fwd_seq=seq, chrom="", strand="+",
+            diag=0, events_start=ev_start, events_length=ev_length,
+            norm_signal=norm_signal,
+        ), ""
     from nanomod_tpu_torch.io.fasta import revcomp
     fwd_seq = seq if hit.strand == "+" else revcomp(seq)
     return PreparedRead(
@@ -215,7 +233,8 @@ def prepare_batch(paths: List[str], cfg: AnnotateConfig,
                                "or load (needs g++)")
         for i, (p, r) in enumerate(good):
             rd, err = _wrap_with_hit(p, r.read_id, r.seq, r.ev_start,
-                                     r.ev_length, r.norm_signal, hits[i])
+                                     r.ev_length, r.norm_signal, hits[i],
+                                     require_seed=(cfg.align == "dp"))
             if rd is None:
                 errors[err].append(p)
             else:
@@ -324,6 +343,112 @@ def finish_alignment(batch: DPBatch, cfg: AnnotateConfig):
     return out
 
 
+def annotate_one(read: PreparedRead, ops, win_start: int, fasta: FastaIndex,
+                 cfg: AnnotateConfig) -> Tuple[Optional[dict], str]:
+    """Run the native indel-correction core (annotate_core.cpp) for one
+    aligned read; returns the payload for the corrected writer.
+
+    ``ops`` is the (ops_type, ops_a, ops_b) int32 array triple of the
+    external aligner (external.cigar_to_ops, win_start 0).  Raises when
+    the native library is missing: the port has no Python correction
+    core."""
+    from nanomod_tpu_torch.io.fast5 import CORRECTED_EVENTS_DTYPE
+    from nanomod_tpu_torch.io.fasta import COMP_LUT
+    from nanomod_tpu_torch.native.annotate_bind import native_annotate_bytes
+    ot, oa, ob = ops
+    if len(ot) == 0:
+        return None, "Incorrect Alignment"
+    genome_b = fasta.get_bytes(read.chrom)
+    m_total = len(read.fwd_seq)
+    read_b = np.frombuffer(read.fwd_seq.encode("ascii"), np.uint8)
+    is_m = ot == 0
+    is_i = ot == 1
+    is_d = ot == 2
+
+    # aligned read span in fwd coordinates
+    ridx = oa[~is_d]
+    if ridx.size == 0:
+        return None, "Incorrect Alignment"
+    r0 = int(ridx.min())
+    r1 = int(ridx.max())
+    leftclip = r0
+    rightclip = m_total - 1 - r1
+
+    m_idx = np.flatnonzero(is_m)
+    if m_idx.size == 0:
+        return None, "Incorrect Alignment"
+    first_match_pos = win_start + int(ob[m_idx[0]])
+
+    # aligned columns in genome-forward order
+    g = np.where(is_m, ob, oa).astype(np.int64) + win_start
+    g_real = g[~is_i]
+    if g_real.size and (g_real.min() < 0 or g_real.max() >= len(genome_b)):
+        return None, "Incorrect Alignment"
+    refb = genome_b[np.where(is_i, 0, g)]
+    refb = np.where(is_i, np.uint8(ord("-")), refb)
+    readb = read_b[np.where(is_d, 0, oa)]
+    readb = np.where(is_d, np.uint8(ord("-")), readb)
+    readb = np.ascontiguousarray(readb, np.uint8)   # native core mutates
+    refb = np.ascontiguousarray(refb, np.uint8)
+    nummismatch = int(np.count_nonzero(is_m & (refb != readb)))
+    numins = int(np.count_nonzero(is_i))
+    numdel = int(np.count_nonzero(is_d))
+    nmatch = len(ot) - nummismatch - numins - numdel
+
+    # genome-forward event arrays for the aligned region
+    n_aligned = r1 - r0 + 1
+    if read.strand == "+":
+        orig = r0 + np.arange(n_aligned)
+    else:
+        orig = m_total - 1 - r0 - np.arange(n_aligned)
+    ev_start = read.events_start[orig].astype(np.int64)
+    ev_length = read.events_length[orig].astype(np.int64)
+
+    res = native_annotate_bytes(
+        refb, readb, ev_start, ev_length, read.strand, read.norm_signal,
+        cfg.min_num_signal, cfg.resegment_signal_wind, cfg.more_signal_perc)
+    if res is None:
+        raise RuntimeError("native library 'annotate_core' failed to build "
+                           "or load (needs g++)")
+    out_mean, out_std, out_start, out_len, out_valid, hist = res
+    valid = np.flatnonzero(out_valid)
+    if valid.size == 0:
+        return None, "Incorrect Alignment"
+    order = valid if read.strand == "+" else valid[::-1]
+    ev_out = np.empty(order.size, CORRECTED_EVENTS_DTYPE)
+    ev_out["norm_mean"] = out_mean[order]
+    ev_out["norm_stdev"] = out_std[order]
+    ev_out["start"] = out_start[order]
+    ev_out["length"] = out_len[order]
+    bb = refb[order]
+    if read.strand == "-":
+        bb = COMP_LUT[bb]
+    ev_out["base"] = bb.view("S1")
+    if read.strand == "+":
+        read_al = readb.view("S1")
+        genome_al = refb.view("S1")
+        clip_s, clip_e = leftclip, rightclip
+    else:
+        read_al = COMP_LUT[readb[::-1]].view("S1")
+        genome_al = COMP_LUT[refb[::-1]].view("S1")
+        clip_s, clip_e = rightclip, leftclip
+    return {
+        "chrom": read.chrom,
+        "start": int(first_match_pos),
+        "strand": read.strand,
+        "events": ev_out,
+        "read_alignment": read_al,
+        "genome_alignment": genome_al,
+        "clipped_start": clip_s,
+        "clipped_end": clip_e,
+        "num_insertions": numins,
+        "num_deletions": numdel,
+        "num_matches": nmatch,
+        "num_mismatches": nummismatch,
+        "signal_hist": {i: int(hist[i]) for i in np.flatnonzero(hist)},
+    }, ""
+
+
 def _fan_out_devices(cfg: AnnotateConfig, device) -> List[torch.device]:
     """The devices the DP sub-batches are dealt to, round-robin: with
     ``n_devices > 1`` on CUDA, the first min(n_devices, device_count) CUDA
@@ -347,6 +472,10 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
     sub-batches and a bounded window of two DP sub-batches stays in flight
     across chunk boundaries: the device computes sub-batch k+1 while the
     host corrects k; the FAST5 write-back runs on a background thread.
+    With an external aligner (``cfg.align`` bwa or minimap2) every chunk
+    is collected first and aligned in one subprocess round (stage
+    ``align_ext``), then each read is corrected on a thread pool
+    (``annotate_one``); no kernel runs.
     """
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
@@ -474,8 +603,9 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
                 out.append((r, payload, ""))
         return out
 
-    with ThreadPoolExecutor(max_workers=1) as writer:
-        pending = []
+    def annotate_dp():
+        """The bounded window of two DP sub-batches in flight: yields each
+        sub-batch's [(read, payload | None, err)] in dispatch order."""
         window = deque()
         for _ in range(2):
             dpb = dispatch_next()
@@ -487,9 +617,49 @@ def process_prepared(prepared, cfg: AnnotateConfig, fasta: FastaIndex,
             nxt = dispatch_next()
             if nxt is not None:
                 window.append(nxt)
-            results = annotate_batch(dpb)
-            for lo in range(0, len(results), 16):
-                pending.append(writer.submit(write_many, results[lo:lo + 16]))
+            yield annotate_batch(dpb)
+
+    def annotate_external():
+        """One external-aligner round over every prepared read, then the
+        per-read correction on a thread pool: yields (read, payload |
+        None, err) in read order."""
+        nonlocal n_seen
+        from nanomod_tpu_torch.resquiggle.external import align_external
+        all_prepared = [r for chunk in chunk_iter for r in chunk]
+        n_seen += len(all_prepared)
+        with stage("align_ext", unit="reads") as s:
+            results = align_external(all_prepared, cfg)
+            s.add(len(all_prepared))
+
+        def one(args):
+            r, (ops, ws) = args
+            if ops is None:
+                return r, None, "Not in alignment sam"
+            payload, err = annotate_one(r, ops, ws, fasta, cfg)
+            return r, payload, err
+        with ThreadPoolExecutor(max_workers=workers) as ex, \
+                stage("annotate", unit="reads") as s:
+            yield from ex.map(one, zip(all_prepared, results))
+            s.add(len(all_prepared))
+
+    with ThreadPoolExecutor(max_workers=1) as writer:
+        pending = []
+
+        def submit(results):
+            """Hand the results to the writer in groups of 16."""
+            group = []
+            for res in results:
+                group.append(res)
+                if len(group) == 16:
+                    pending.append(writer.submit(write_many, group))
+                    group = []
+            if group:
+                pending.append(writer.submit(write_many, group))
+
+        batches = (annotate_dp() if cfg.align == "dp"
+                   else [annotate_external()])
+        for results in batches:
+            submit(results)
         with stage("write", unit="reads") as s:
             for fut in pending:
                 n_ok += fut.result()

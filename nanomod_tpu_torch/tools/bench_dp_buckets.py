@@ -8,6 +8,9 @@ with 10 % substitutions, it measures on the card:
     k1_plain  K1's plain PyTorch version (banded_sw_plain), once
     walk      K2 (csrc/walk.cu) through banded.walk, in the pipeline's
               mode (codes four a byte where 2M+W is a multiple of 4)
+    pack      pack_outputs alone (plain PyTorch: a stack and a cat), beside
+              pack_bound, its bytes (the codes and the three [B] outputs
+              read once, the packed rows written once) over 3.35 TB/s
     pack_fetch  pack_outputs and the device-to-host copy of the packed
               codes, as dispatch_dp and fetch_outputs do
 
@@ -32,6 +35,8 @@ import time
 import numpy as np
 
 B = 64
+# an H100 SXM's HBM3 rate at 700 W (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
 DEFAULT = ((2048, 128), (4096, 128), (8192, 128), (16384, 128),
            (4096, 2048), (4096, 4096))
 
@@ -69,6 +74,11 @@ def bench_bucket(torch, m, w):
     codes, packed = banded.walk(tb, bi, bk)
     out["walk_mode"] = "codes2" if packed else "codes"
     out["walk_ms"] = _time_ms(torch, lambda: banded.walk(tb, bi, bk), 10)
+
+    out["pack_ms"] = _time_ms(
+        torch, lambda: banded.pack_outputs(codes, best, bi, bk), 10)
+    packed_bytes = codes.numel() + 12 * B
+    out["pack_bound_ms"] = 2 * packed_bytes / HBM_BYTES_PER_S * 1e3
 
     def pack_fetch():
         p = banded.pack_outputs(codes, best, bi, bk)

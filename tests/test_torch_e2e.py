@@ -139,14 +139,15 @@ def test_prepare_and_alignment_match_jax(chain):
                 np.testing.assert_array_equal(x, y)
 
 
-@pytest.mark.parametrize("kw", [dict(align="bwa"),
+@pytest.mark.parametrize("kw", [dict(align="blast"),
                                 dict(band_width=32769, device="cuda"),
                                 dict(use_native=False),
                                 dict(use_device_walk=False)])
 def test_annotate_unported_options_raise(chain, kw):
     """What the port still refuses, before any device work (so the CUDA
-    case runs without a card): the external aligners, the non-native
-    paths, and a band width above 32,768 on the card."""
+    case runs without a card): an aligner the reference does not have
+    (it runs dp, bwa and minimap2), the non-native paths, and a band
+    width above 32,768 on the card."""
     from nanomod_tpu_torch.resquiggle.pipeline import process_prepared
     kw = dict(kw)
     device = kw.pop("device", "cpu")

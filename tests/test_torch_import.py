@@ -37,6 +37,7 @@ def test_no_port_module_imports_jax():
     for mod in ("cli", "detect", "device", "metrics", "kernels.build",
                 "resquiggle.banded", "resquiggle.banded_kernel",
                 "resquiggle.pipeline", "resquiggle.seed",
+                "resquiggle.external", "bench", "tools.fixtures",
                 "resquiggle.annotate", "stats.kernels", "stats.battery",
                 "stats.special", "stats.combine", "stats.threefry",
                 "rank.ranking", "harness.simulate", "config", "io.fast5",

@@ -195,3 +195,17 @@ def test_loader_builds_into_the_port_build_dir(tmp_path, monkeypatch):
     assert native.source_path("traceback") in cmd
     assert not any(REF_NATIVE in a for a in cmd)
     assert _snapshot(REF_NATIVE) == before
+
+
+def test_external_aligner_module_is_a_copy():
+    """resquiggle/external.py is the reference's text with a first line
+    naming its source and only its imports changed."""
+    with open(os.path.join(ROOT, "nanomod_tpu", "resquiggle",
+                           "external.py")) as f:
+        ref = f.read()
+    with open(os.path.join(ROOT, "nanomod_tpu_torch", "resquiggle",
+                           "external.py")) as f:
+        first, port = f.read().split("\n", 1)
+    assert first == ("# Copied from nanomod_tpu/resquiggle/external.py; "
+                     "only the imports differ.")
+    assert port == ref.replace("from nanomod_tpu.", "from nanomod_tpu_torch.")
