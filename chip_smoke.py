@@ -96,14 +96,22 @@ Phase 6  K6 at the main path's own shapes: the capped detect again, in
          whole, both timed.  The kernels line gives K6's times at that
          input; its bound is printed beside the draws' share of it.
 Phase 7  the multi-device and multi-process paths.  (a) K7, the neighbor
-         stencil, against its plain version on the card: P = 1,048,576
-         positions in 4 shards of a mesh of cuda:0 four times, k = 2 and 5,
-         two joins (positions start again inside a shard), capped rows
-         (cov 200) beside uncapped ones, padding rows, the mesh's edges;
-         array-equal.  (b) K9, the event accumulation, against its plain
-         version and against index_add_: a genome of 4,641,652 positions
-         (E. coli K-12's length), 2^22 events, 10 % not ok; counts equal,
-         sums within rtol 1e-5 and atol 1e-5.  (c) sharded_join_battery on
+         stencil step, against its plain version (halo blocks, then a
+         stencil a shard) on the card: P = 1,048,576 positions in 4 shards
+         of a mesh of cuda:0 four times, k = 2 and 5, cov 0 and 200, two
+         joins (positions start again inside a shard), capped rows beside
+         uncapped ones, padding rows, the mesh's edges; array-equal, one
+         launch a step, and no device operation but K7's kernel, at most
+         once a step, in the profiler's trace of 100 steps; K7's device
+         time, mean10, single launches and the step through
+         sharded_stencil.  (b) K9, the event accumulation, against its
+         plain version and against index_add_:
+         a genome of 4,641,652 positions (E. coli K-12's length), 2^22
+         events, 10 % not ok, at uniform positions and as
+         distributed_detect_step gets them (read-major: 4,096 reads of
+         1,024 consecutive positions, one or two events a base); counts
+         equal, sums within rtol 1e-5 and atol 1e-5; device time, mean10,
+         single, bound and index_add_ at both.  (c) sharded_join_battery on
          the 4-shard mesh against run_battery + combine_neighbor_pvalues
          at phase 2's P = 1,048,576, without and with a cap of 60 (phase
          2's counts are 30-100): every float64 column bit-equal.  (d) the
@@ -111,9 +119,9 @@ Phase 7  the multi-device and multi-process paths.  (a) K7, the neighbor
          phase 3's groups, stouffer, fisher, ks and ``--coverages 200-200
          --mstd 1``: the tables byte-equal to the single-device ones
          (phases 3 and 5); then distributed_detect_step on the mesh (data
-         2) at the genome and events of (b), its counts against K9's plain
-         version and its D against the plain pooled components.  The
-         counts are set to 0 before each and read after: K7 and K9 must
+         2) at the genome and read-major events of (b), its counts against
+         K9's plain version and its D against the plain pooled components.
+         The counts are set to 0 before each and read after: K7 and K9 must
          have launched.  (e) two processes on the card through
          ``torch.distributed.run --standalone --nproc_per_node 2``: ``cli
          detect --device cuda`` (union, and sharded with --coverages
@@ -257,6 +265,7 @@ STENCIL_KS = (2, 5)
 STENCIL_COV = 200
 GENOME_LEN = 4_641_652
 EVENTS = 1 << 22
+READ_LEN = 1024
 SHARDED_COV = 60
 # K7's integer operations a written entry (selection, halo pick, the
 # distance and validity tests); K9's f32 operations an event kept (three
@@ -1650,12 +1659,12 @@ def stencil_shards(torch, rng, dev, p, nsh, cov):
             for s in range(nsh)]
 
 
-def k7_work(length, k):
-    """K7's bytes (five int32 vectors and one byte vector of [L] read, two
-    [5, k] halos, the [2k+1, L] stencil of 13 bytes an entry written) and
-    integer operations."""
-    entries = (2 * k + 1) * length
-    return dict(bytes_moved=21 * length + 40 * k + 13 * entries,
+def k7_work(length, k, nshards):
+    """K7's bytes over a step (each shard's five int32 vectors and one byte
+    vector of [L] read once, its [2k+1, L] stencil of 13 bytes an entry
+    written) and integer operations."""
+    entries = (2 * k + 1) * length * nshards
+    return dict(bytes_moved=21 * length * nshards + 13 * entries,
                 int_ops=K7_OPS * entries)
 
 
@@ -1670,12 +1679,10 @@ def k9_work(torch, pos, ok, genome_len):
                 f32_ops=K9_OPS * kept)
 
 
-def device_ms(torch, fn, key, n=100):
-    """Device time of the kernels whose name holds ``key``, a call of fn:
-    n calls under torch.profiler after a warm-up (None when the trace
-    holds none; the trace's top device entries are then logged).  It
-    leaves out the host's launch overhead that time_ms sees when the
-    kernel is shorter than its wrapper."""
+def device_ops(torch, fn, n=100):
+    """{name: [calls, summed device us]} of the operations that ran on the
+    card (kernels, copies, fills) over n calls of fn under torch.profiler,
+    after a warm-up."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1684,19 +1691,45 @@ def device_ms(torch, fn, key, n=100):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    us = sum(_device_us(e) for e in avgs if key in e.key)
+    return {e.key[:80]: [e.count, _device_us(e)]
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def device_ms(ops, keys):
+    """Device ms a call of the operations of ``ops`` (device_ops) whose name
+    holds one of ``keys``, each averaged over the calls the trace holds
+    (the tracer can miss some); None when there are none (the trace's
+    device entries are then logged).  It leaves out the host's launch
+    overhead that time_ms sees when the kernels are shorter than their
+    wrapper."""
+    keys = (keys,) if isinstance(keys, str) else keys
+    us = sum(v[1] / v[0] for name, v in ops.items()
+             if any(k in name for k in keys))
     if not us:
-        log(f"device_ms: no {key!r} in the trace; top device entries",
-            json.dumps([[e.key[:80], _device_us(e)] for e in sorted(
-                avgs, key=_device_us, reverse=True)[:5]]))
+        log(f"device_ms: no {keys!r} in the trace; device entries",
+            json.dumps(ops))
         return None
-    return us / 1e3 / n
+    return us / 1e3
+
+
+def read_major_events(rng, n, genome_len):
+    """distributed_detect_step's events: [n / READ_LEN, READ_LEN] reads of
+    consecutive positions (one or two events a base), starting uniformly
+    over the genome, 10 % not ok."""
+    r = n // READ_LEN
+    start = rng.integers(0, genome_len - READ_LEN, (r, 1))
+    pos = start + np.cumsum(rng.integers(0, 2, (r, READ_LEN)), axis=1)
+    return (pos.astype(np.int32),
+            rng.normal(0, 1, (r, READ_LEN)).astype(np.float32),
+            rng.random((r, READ_LEN)) >= 0.1)
 
 
 def phase7_kernels(torch, dev):
     """(a) K7 and (b) K9 against their plain versions on the card, timed
-    beside their bounds (and K9 beside index_add_)."""
+    beside their bounds (and K9 beside index_add_, at uniform and
+    read-major events)."""
+    from nanomod_tpu_torch.kernels import build as kbuild
     from nanomod_tpu_torch.parallel import mesh, sharded
     rng = np.random.default_rng(7)
     res = {}
@@ -1706,64 +1739,91 @@ def phase7_kernels(torch, dev):
     errs = []
     for k in STENCIL_KS:
         for cov in (0, STENCIL_COV):
-            hal = sharded.halos(shards, k, cov)
-            for sh, (left, right) in zip(shards, hal):
-                got = sharded.stencil_cuda(*sh, left, right, k=k, cov=cov)
-                want = sharded.stencil_plain(*sh, left, right, k=k, cov=cov)
-                for a, b in zip(got, want):
+            before = kbuild.LAUNCHES["stencil"]
+            got = sharded.sharded_stencil_cuda(shards, k, cov)
+            if kbuild.LAUNCHES["stencil"] != before + 1:
+                raise AssertionError("K7: a step on one card must be one "
+                                     "launch")
+            want = sharded.sharded_stencil_plain(shards, k, cov)
+            for g, w in zip(got, want):
+                for a, b in zip(g, w):
                     if not torch.equal(a, b):
-                        raise AssertionError(f"K7 differs from plain at k = "
-                                             f"{k}, cov = {cov}")
-                errs.append((got[0], want[0]))
-                ok = got[3]
+                        raise AssertionError(f"K7 differs from plain at k "
+                                             f"= {k}, cov = {cov}")
+                errs.append((g[0], w[0]))
+            ok = torch.stack([g[3] for g in got])
             if not (ok.any() and not ok.all()):
                 raise AssertionError("K7's ok rows must be mixed")
     k = STENCIL_KS[0]
-    sh = shards[1]
-    left, right = sharded.halos(shards, k, STENCIL_COV)[1]
-    k7 = functools.partial(sharded.stencil_cuda, *sh, left, right, k=k,
-                           cov=STENCIL_COV)
-    plain = functools.partial(sharded.stencil_plain, *sh, left, right, k=k,
-                              cov=STENCIL_COV)
+    step = functools.partial(sharded.sharded_stencil_cuda, shards, k,
+                             STENCIL_COV)
+    plain = functools.partial(sharded.sharded_stencil_plain, shards, k,
+                              STENCIL_COV)
+    before = kbuild.LAUNCHES["stencil"]
+    step()
+    launches = kbuild.LAUNCHES["stencil"] - before
+    ops = device_ops(torch, step)
+    if ops and (len(ops) != 1 or "stencil_step_kernel" not in next(iter(ops))
+                or next(iter(ops.values()))[0] > 100):
+        raise AssertionError(f"K7's step must be one kernel and no other "
+                             f"device operation: {ops} over 100 steps")
     res["k7"] = {
         "P": BATTERY_P, "shards": MESH_SHARDS, "L": length, "k": k,
         "cov": STENCIL_COV, "max_abs_err": max_abs_err(torch, errs),
-        "ms": time_ms(torch, k7), "single_ms": time_ms(torch, k7, n=1),
+        "launches_per_step": launches,
+        "device_ops_100_steps": ops or "not measured (no device events)",
+        "ms": time_ms(torch, step), "single_ms": time_ms(torch, step, n=1),
         "plain_ms": time_ms(torch, plain),
-        "device_ms": device_ms(torch, k7, "stencil_kernel"),
+        "device_ms": device_ms(ops, "stencil_step_kernel"),
         "step_ms": time_ms(torch, lambda: sharded.sharded_stencil(
             shards, k, STENCIL_COV)),
     }
-    res["k7"]["bound_ms"], res["k7"]["bound_by"] = bound(**k7_work(length, k))
+    res["k7"]["bound_ms"], res["k7"]["bound_by"] = bound(
+        **k7_work(length, k, MESH_SHARDS))
 
-    pos = torch.from_numpy(rng.integers(0, GENOME_LEN, EVENTS)
-                           .astype(np.int32)).to(dev)
-    val = torch.from_numpy(rng.normal(0, 1, EVENTS).astype(np.float32)).to(dev)
-    ok = torch.from_numpy(rng.random(EVENTS) >= 0.1).to(dev)
-    got = mesh.accumulate_cuda(pos, val, ok, GENOME_LEN)
-    want = mesh.accumulate_plain(pos, val, ok, GENOME_LEN)
-    check_accumulate(torch, got, want, "K9 against its plain version")
-    idx = pos[ok].to(torch.int64)
-    v = val[ok]
-    src = torch.stack([torch.ones_like(v), v, v * v], dim=1)
-    lib = torch.zeros((GENOME_LEN, 3), device=dev).index_add_(0, idx, src)
-    check_accumulate(torch, got, lib.T, "K9 against index_add_")
-    k9 = functools.partial(mesh.accumulate_cuda, pos, val, ok, GENOME_LEN)
-    res["k9"] = {
-        "genome_len": GENOME_LEN, "events": EVENTS,
-        "kept": int(idx.numel()),
-        "max_abs_err": max_abs_err(torch, zip(got, want)),
-        "ms": time_ms(torch, k9), "single_ms": time_ms(torch, k9, n=1),
-        "device_ms": device_ms(torch, k9, "accumulate_kernel"),
-        "plain_ms": time_ms(torch, lambda: mesh.accumulate_plain(
-            pos, val, ok, GENOME_LEN)),
-        "library_ms": time_ms(torch, lambda: torch.zeros(
-            (GENOME_LEN, 3), device=dev).index_add_(0, idx, src)),
+    draws = {
+        "uniform": (rng.integers(0, GENOME_LEN, EVENTS).astype(np.int32),
+                    rng.normal(0, 1, EVENTS).astype(np.float32),
+                    rng.random(EVENTS) >= 0.1),
+        "read_major": read_major_events(rng, EVENTS, GENOME_LEN),
     }
-    res["k9"]["bound_ms"], res["k9"]["bound_by"] = bound(
-        **k9_work(torch, pos, ok, GENOME_LEN))
+    res["k9"] = {}
+    for shape, arrays in draws.items():
+        pos, val, ok = (torch.from_numpy(a).to(dev) for a in arrays)
+        got = mesh.accumulate_cuda(pos, val, ok, GENOME_LEN)
+        want = mesh.accumulate_plain(pos, val, ok, GENOME_LEN)
+        check_accumulate(torch, got, want,
+                         f"K9 against its plain version ({shape})")
+        keep = ok.reshape(-1)
+        idx = pos.reshape(-1)[keep].to(torch.int64)
+        v = val.reshape(-1)[keep]
+        src = torch.stack([torch.ones_like(v), v, v * v], dim=1)
+        lib = torch.zeros((GENOME_LEN, 3), device=dev).index_add_(0, idx,
+                                                                   src)
+        check_accumulate(torch, got, lib.T, f"K9 against index_add_ "
+                                            f"({shape})")
+        k9 = functools.partial(mesh.accumulate_cuda, pos, val, ok,
+                               GENOME_LEN)
+        ops = device_ops(torch, k9)
+        r = {
+            "genome_len": GENOME_LEN, "events": EVENTS,
+            "shape": list(pos.shape), "kept": int(idx.numel()),
+            "max_abs_err": max_abs_err(torch, zip(got, want)),
+            "device_ops_100_calls": ops,
+            "ms": time_ms(torch, k9), "single_ms": time_ms(torch, k9, n=1),
+            # the accumulator's zeroing and the atomics
+            "device_ms": device_ms(ops, ("accumulate_kernel",
+                                         "FillFunctor")),
+            "plain_ms": time_ms(torch, lambda: mesh.accumulate_plain(
+                pos, val, ok, GENOME_LEN)),
+            "library_ms": time_ms(torch, lambda: torch.zeros(
+                (GENOME_LEN, 3), device=dev).index_add_(0, idx, src)),
+        }
+        r["bound_ms"], r["bound_by"] = bound(
+            **k9_work(torch, pos, ok, GENOME_LEN))
+        res["k9"][shape] = r
     log("phase7 kernels", json.dumps(res))
-    return res, (pos, val, ok)
+    return res, draws["read_major"]
 
 
 def check_accumulate(torch, got, want, what):
@@ -1826,7 +1886,7 @@ def phase7_sharded_battery(torch, dev):
     return res
 
 
-def phase7_main_paths(torch, dev, tmp, groups, events):
+def phase7_main_paths(torch, dev, tmp, groups, reads):
     """(d) the in-process sharded detect and distributed_detect_step, each
     with the launch counts set to 0 just before and read just after."""
     from nanomod_tpu_torch.config import (DetectConfig, RankConfig,
@@ -1880,8 +1940,6 @@ def phase7_main_paths(torch, dev, tmp, groups, events):
             raise AssertionError(f"the sharded detect did not launch "
                                  f"{kern}: {detect_launches}")
 
-    pos, val, ok = events
-    reads = [x.reshape(4096, -1).cpu().numpy() for x in (pos, val, ok)]
     prng = np.random.default_rng(8)
     pp, nn = 65536, 64
     z = np.where(prng.random((pp, nn)) < 0.8,
@@ -1904,7 +1962,8 @@ def phase7_main_paths(torch, dev, tmp, groups, events):
         raise AssertionError(f"distributed_detect_step did not launch K9 "
                              f"and K3: {step_launches}")
     check_accumulate(torch, step[:3], mesh.accumulate_plain(
-        pos, val, ok, GENOME_LEN), "distributed_detect_step")
+        *(torch.from_numpy(x).to(dev) for x in reads), GENOME_LEN),
+        "distributed_detect_step")
     want = kernels.pooled_rank_components_plain(
         *(torch.from_numpy(x).to(dev) for x in (z, lab, n1, n2)))
     for a, b in zip(step[3:], want):
@@ -2241,6 +2300,8 @@ def main() -> int:
         raise AssertionError(f"JAX-package modules were loaded: {jax_package}")
 
     main_dp = p1[MAIN_PATH_BUCKET]
+    # K9 at distributed_detect_step's read-major events (phase 7d's input)
+    k9_main = p7["k9"]["read_major"]
     dp_runs = [r for m, r in p1.items() if m != "extra"] \
         + list(p1["extra"].values())
     # no single PyTorch call computes any of these functions but K9's
@@ -2295,11 +2356,11 @@ def main() -> int:
          "source": "nanomod_tpu_torch/csrc/accumulate.cu",
          "replaces": "nanomod_tpu/parallel/mesh.py:70",
          "launches": p7_main["step_launches"]["accumulate"],
-         "max_abs_err": p7["k9"]["max_abs_err"],
-         "ms": p7["k9"]["ms"], "single_ms": p7["k9"]["single_ms"],
-         "plain_ms": p7["k9"]["plain_ms"],
-         "bound_ms": p7["k9"]["bound_ms"], "bound_by": p7["k9"]["bound_by"],
-         "library_ms": p7["k9"]["library_ms"]},
+         "max_abs_err": max(r["max_abs_err"] for r in p7["k9"].values()),
+         "ms": k9_main["ms"], "single_ms": k9_main["single_ms"],
+         "plain_ms": k9_main["plain_ms"],
+         "bound_ms": k9_main["bound_ms"], "bound_by": k9_main["bound_by"],
+         "library_ms": k9_main["library_ms"]},
     ]
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,100 +1,163 @@
-// K7: the neighbor-combination stencil of one position shard, on the card.
+// K7: the neighbor-combination stencil of every position shard on one card,
+// in one launch.
 //
 // Replaces the step of nanomod_tpu/parallel/sharded.py _stencil_fn (XLA
-// under shard_map): per position of the shard's [L] slice, pick the KS
-// numerator and effective sizes the test used (the capped subsample's where
-// a group exceeds the per-strand cap cov, the plain ones otherwise), and
-// assemble the [2k+1, L] stencil of (numerator, ne1, ne2, ok) for the
-// offsets -k..k.  Columns past the shard's edges come from the [5, k] halo
-// blocks (selected numerator, ne1, ne2, position, valid) that the wrapper
-// copied from the neighbour shards; a mesh edge's halo is zeros, so its
-// valid is 0 and the host gives that neighbor p = 1.0.  ok is the
+// under shard_map): its ppermute halo exchange and the stencil assembly.
+// Per position of a shard's [L] slice, pick the KS numerator and effective
+// sizes the test used (the capped subsample's where a group exceeds the
+// per-strand cap cov, the plain ones otherwise), and assemble the [2k+1, L]
+// stencil of (numerator, ne1, ne2, ok) for the offsets -k..k.  ok is the
 // reference's pos_check: valid at offset 0, elsewhere the neighbor's valid,
 // the center's valid and a genomic distance equal to the offset.
 //
-// What bounds it: bytes.  It reads five int32 vectors and one byte vector
-// of [L] and writes (2k+1) x L x 13 bytes, with a handful of integer
-// operations a written column, so the outputs' writes set its time.  The
-// design is one thread per (offset, column): the grid's y is the offset,
-// its x the column, so a warp reads and writes neighbouring addresses and
-// no thread divides an index; the selection is recomputed per thread from
-// the center vectors (cached in L2), which costs less than a second pass
-// over memory.
+// What bounds it: bytes.  A shard reads five int32 vectors and one byte
+// vector of [L] and writes (2k+1) x L x 13 bytes, with a handful of integer
+// operations a written entry, so the outputs' writes set its time.  At the
+// main path's sizes that is a few microseconds a shard, so what bounded
+// the step was the host: a launch a shard, and a dozen small device ops a
+// shard to cut, select and copy its [5, k] halo blocks.
+//
+// The design: one launch for every shard a card holds (the grid's z is the
+// shard, its y the offset, its x the column, so a warp reads and writes
+// neighbouring addresses).  Each shard is a ShardCols descriptor of input
+// pointers, its own and its two neighbours', passed by value in the kernel's
+// parameters (a __grid_constant__ struct, read from the constant bank), so
+// nothing is copied before the launch.  A column past the shard's edge is
+// read straight from the neighbour's [L] inputs, with the same selection as
+// the shard's own columns: the halo exchange becomes k loads at each edge.
+// A neighbour on another card is read over NVLink through peer access
+// (nm_enable_peer_access, called by the wrapper once per pair of cards); a
+// mesh edge has null pointers and reads as zeros with valid 0, as the
+// reference's zero-filled ppermute.  The selection is recomputed per
+// (offset, column) from the vectors (cached in L2), which costs less than
+// a second pass over memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void stencil_kernel(const int* __restrict__ num,
-                               const int* __restrict__ cap,
-                               const int* __restrict__ n1c,
-                               const int* __restrict__ n2c,
-                               const int* __restrict__ pos,
-                               const uint8_t* __restrict__ valid,
-                               const int* __restrict__ left,
-                               const int* __restrict__ right, int L, int k,
-                               int cov, int* __restrict__ d_out,
-                               int* __restrict__ ne1_out,
-                               int* __restrict__ ne2_out,
-                               uint8_t* __restrict__ ok_out) {
+constexpr int kMaxShards = 16;
+constexpr int kThreads = 256;
+
+// one shard's [L] inputs
+struct Cols {
+  const int* num;
+  const int* cap;
+  const int* n1c;
+  const int* n2c;
+  const int* pos;
+  const uint8_t* valid;
+};
+
+struct ShardCols {
+  Cols self, left, right;
+};
+
+// the outputs are [nshards, 2k+1, L], shard after shard
+struct StepArgs {
+  ShardCols shard[kMaxShards];
+  int* d;
+  int* ne1;
+  int* ne2;
+  uint8_t* ok;
+  int L, k, cov;
+};
+
+__global__ void __launch_bounds__(kThreads)
+stencil_step_kernel(const __grid_constant__ StepArgs a) {
+  const int L = a.L;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= L) return;
-  const int off = (int)blockIdx.y - k;
-  const int t = (int)blockIdx.y * L + j;
+  const int row = blockIdx.y;
+  const int off = row - a.k;
   const int src = j + off;
-  int p_num, p_ne1, p_ne2, p_pos, p_valid;
-  if (src < 0 || src >= L) {
-    // halo block [5, k]: left holds the k columns just before the shard,
-    // right the k just after it
-    const int* h = src < 0 ? left : right;
-    const int c = src < 0 ? k + src : src - L;
-    p_num = h[c];
-    p_ne1 = h[k + c];
-    p_ne2 = h[2 * k + c];
-    p_pos = h[3 * k + c];
-    p_valid = h[4 * k + c];
-  } else {
-    const int a = n1c[src], b = n2c[src];
-    const bool need = cov > 0 && (a > cov || b > cov);
-    p_num = need ? cap[src] : num[src];
-    p_ne1 = need ? min(a, cov) : a;
-    p_ne2 = need ? min(b, cov) : b;
-    p_pos = pos[src];
-    p_valid = valid[src];
+  const ShardCols& sh = a.shard[blockIdx.z];
+  const Cols c = src < 0 ? sh.left : (src >= L ? sh.right : sh.self);
+  const int i = src < 0 ? src + L : (src >= L ? src - L : src);
+  int p_num = 0, p_ne1 = 0, p_ne2 = 0, p_pos = 0, p_valid = 0;
+  if (c.num != nullptr) {
+    const int n1 = c.n1c[i], n2 = c.n2c[i];
+    const bool need = a.cov > 0 && (n1 > a.cov || n2 > a.cov);
+    p_num = need ? c.cap[i] : c.num[i];
+    p_ne1 = need ? min(n1, a.cov) : n1;
+    p_ne2 = need ? min(n2, a.cov) : n2;
+    p_pos = c.pos[i];
+    p_valid = c.valid[i];
   }
-  const bool center = valid[j] != 0;
+  const bool center = sh.self.valid[j] != 0;
   bool ok;
   if (off == 0) {
     ok = center;
   } else {
     // int32 wrap-around difference, as the reference's int32 subtract
-    const int dist = (int)((uint32_t)p_pos - (uint32_t)pos[j]);
+    const int dist = (int)((uint32_t)p_pos - (uint32_t)sh.self.pos[j]);
     ok = p_valid > 0 && center && dist == off;
   }
-  d_out[t] = p_num;
-  ne1_out[t] = p_ne1;
-  ne2_out[t] = p_ne2;
-  ok_out[t] = ok ? 1 : 0;
+  const size_t t = ((size_t)blockIdx.z * gridDim.y + row) * L + j;
+  a.d[t] = p_num;
+  a.ne1[t] = p_ne1;
+  a.ne2[t] = p_ne2;
+  a.ok[t] = ok ? 1 : 0;
 }
 
 }  // namespace
 
-// num, cap, n1c, n2c, pos: [L] int32; valid [L] u8; left, right: [5, k]
-// int32; outputs [2k+1, L] (d, ne1, ne2 int32, ok u8); (2k+1) L < 2^31
-// and 2k+1 <= 65535 (the grid's y).
-extern "C" int nm_stencil(const void* num, const void* cap, const void* n1c,
-                          const void* n2c, const void* pos, const void* valid,
-                          const void* left, const void* right, int L, int k,
-                          int cov, void* d, void* ne1, void* ne2, void* ok,
-                          void* stream) {
-  if (L == 0) return 0;
-  const int threads = 256;
-  const dim3 grid((L + threads - 1) / threads, 2 * k + 1);
-  stencil_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)num, (const int*)cap, (const int*)n1c, (const int*)n2c,
-      (const int*)pos, (const uint8_t*)valid, (const int*)left,
-      (const int*)right, L, k, cov, (int*)d, (int*)ne1, (int*)ne2,
-      (uint8_t*)ok);
+// cols: host array of nshards x 18 pointers, a shard's own (num, cap, n1c,
+// n2c, pos: [L] int32; valid: [L] u8), then its left and its right
+// neighbour's, null at a mesh edge; outputs d, ne1, ne2 (int32) and ok (u8)
+// of [nshards, 2k+1, L].  nshards <= 16, 2k+1 <= 65535, k <= L.
+extern "C" int nm_stencil_step(const void* const* cols, int nshards, int L,
+                               int k, int cov, void* d, void* ne1, void* ne2,
+                               void* ok, void* stream) {
+  if (nshards < 0 || nshards > kMaxShards || k < 0 || k > L ||
+      2 * k + 1 > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (L == 0 || nshards == 0) return 0;
+  StepArgs a;
+  for (int s = 0; s < nshards; ++s) {
+    Cols* dst[3] = {&a.shard[s].self, &a.shard[s].left, &a.shard[s].right};
+    for (int side = 0; side < 3; ++side) {
+      const void* const* p = cols + 18 * s + 6 * side;
+      dst[side]->num = (const int*)p[0];
+      dst[side]->cap = (const int*)p[1];
+      dst[side]->n1c = (const int*)p[2];
+      dst[side]->n2c = (const int*)p[3];
+      dst[side]->pos = (const int*)p[4];
+      dst[side]->valid = (const uint8_t*)p[5];
+    }
+  }
+  a.d = (int*)d;
+  a.ne1 = (int*)ne1;
+  a.ne2 = (int*)ne2;
+  a.ok = (uint8_t*)ok;
+  a.L = L;
+  a.k = k;
+  a.cov = cov;
+  const dim3 grid((L + kThreads - 1) / kThreads, 2 * k + 1, nshards);
+  stencil_step_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Let the current card read the memory of card ``peer`` (cudaDeviceCanAccess
+// Peer, then cudaDeviceEnablePeerAccess).  Returns 0 when it can (access
+// enabled now, before, or peer is the current card), -1 when the two cards
+// cannot reach each other, else a CUDA error code.  Access that PyTorch's
+// own peer copies enabled already counts as success, and its error is
+// cleared.
+extern "C" int nm_enable_peer_access(int peer) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev == peer) return 0;
+  int can = 0;
+  e = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (e != cudaSuccess) return (int)e;
+  if (!can) return -1;
+  e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    return 0;
+  }
+  return (int)e;
 }

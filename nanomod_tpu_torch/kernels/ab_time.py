@@ -17,11 +17,15 @@ K3 ``battery`` on a 16,384 x 128 int16 tile, counts 30..100,
 cov 200, R 100, eight distinct values a group and row (the smoke data's
 eight reads a strand, each copied 64 times), counts 400..512 in about
 96 % of the rows (capped) and 100..200 in the others (not capped); K7
-``stencil`` on one shard of 262,144 positions, k 2, cov 200, its halos
-from the neighbour shards of a 4-shard split of 1,048,576 positions; K9
-``accumulate`` at a genome of 4,641,652 positions and 2^22 events, 10 %
-not ok (its digest covers the counts, since the f32 sums depend on the
-order of its atomics).  A checkout without a kernel skips it.
+``stencil``, the whole sharded stencil step (``sharded_stencil``: the
+halo exchange and every shard's stencil) of 1,048,576 positions in 4
+shards on the card, k 2, cov 200; K9 ``accumulate`` at a genome of
+4,641,652 positions and 2^22 events, 10 % not ok, at uniform positions,
+and ``accumulate_read_major`` at 4,096 reads of 1,024 consecutive
+positions (one or two events a base) starting uniformly over the genome,
+as distributed_detect_step gets them (their digests cover the counts,
+since the f32 sums depend on the order of the atomics).  A checkout
+without a kernel skips it.
 
 Two yardsticks, each the median of 3 samples after a warm-up: single
 launches (one call between two CUDA events, so the host's launch overhead
@@ -48,9 +52,9 @@ K6_KW = dict(cov=200, repeats=100, quantile_idx=25, seed=0)
 K6_LEVELS = 8         # distinct values a group and row
 K6_CAPPED = 0.96      # share of capped rows
 KERNELS = ("banded_sw", "walk", "battery", "battery_f32", "battery_deep",
-           "capped_ks", "stencil", "accumulate")
+           "capped_ks", "stencil", "accumulate", "accumulate_read_major")
 K7_P, K7_SHARDS, K7_K, K7_COV = 1 << 20, 4, 2, 200
-K9_G, K9_EVENTS = 4_641_652, 1 << 22
+K9_G, K9_EVENTS, K9_READ_LEN = 4_641_652, 1 << 22, 1024
 
 
 def _inputs():
@@ -88,8 +92,14 @@ def _inputs():
     k9 = [rng.integers(0, K9_G, K9_EVENTS).astype(np.int32),
           rng.normal(0, 1, K9_EVENTS).astype(np.float32),
           rng.random(K9_EVENTS) >= 0.1]
+    reads = K9_EVENTS // K9_READ_LEN
+    start = rng.integers(0, K9_G - K9_READ_LEN, (reads, 1))
+    k9_rm = [(start + np.cumsum(rng.integers(0, 2, (reads, K9_READ_LEN)),
+                                axis=1)).astype(np.int32),
+             rng.normal(0, 1, (reads, K9_READ_LEN)).astype(np.float32),
+             rng.random((reads, K9_READ_LEN)) >= 0.1]
     return ([read, ref, np.full(B, M, np.int32)], k3, k3_f32, k3_deep, k6,
-            k7, k9)
+            k7, k9, k9_rm)
 
 
 def _time_ms(torch, fn, n):
@@ -123,7 +133,7 @@ def worker(root):
     from nanomod_tpu_torch.resquiggle.banded_kernel import banded_sw_cuda
     from nanomod_tpu_torch.stats import kernels
     dev = torch.device("cuda", 0)
-    dp, k3, k3_f32, k3_deep, k6, k7, k9 = (
+    dp, k3, k3_f32, k3_deep, k6, k7, k9, k9_rm = (
         [torch.from_numpy(x).to(dev) for x in group] for group in _inputs())
     tb, best, bi, bk = banded_sw_cuda(*dp)
     if hasattr(banded, "walk"):
@@ -153,17 +163,21 @@ def worker(root):
         length = K7_P // K7_SHARDS
         shards = [tuple(x[s * length:(s + 1) * length] for x in k7)
                   for s in range(K7_SHARDS)]
-        left, right = sharded.halos(shards, K7_K, K7_COV)[1]
-        fns["stencil"] = lambda: sharded.stencil_cuda(
-            *shards[1], left, right, k=K7_K, cov=K7_COV)
+        fns["stencil"] = lambda: sharded.sharded_stencil(shards, K7_K,
+                                                         K7_COV)
         fns["accumulate"] = lambda: mesh.accumulate_cuda(*k9, K9_G)
+        fns["accumulate_read_major"] = lambda: mesh.accumulate_cuda(
+            *k9_rm, K9_G)
     outs = {}
     for name, fn in fns.items():
         out = fn()
+        if name == "stencil":                  # a tuple a shard
+            out = tuple(t for shard in out for t in shard)
         outs[name] = list(out) if isinstance(out, tuple) else [out]
     outs["banded_sw"] = [tb, best, bi, bk]
-    if "accumulate" in outs:
-        outs["accumulate"] = outs["accumulate"][:1]     # the counts
+    for name in ("accumulate", "accumulate_read_major"):
+        if name in outs:
+            outs[name] = outs[name][:1]        # the counts
     res = {"root": root}
     for name, fn in fns.items():
         res[name] = {"single_ms": _time_ms(torch, fn, 1),

@@ -51,6 +51,8 @@ LAUNCHES = {"banded_sw": 0, "walk": 0, "battery": 0, "capped_ks": 0,
 
 _LOCK = threading.Lock()
 _LIB = {}
+# (card, peer) pairs whose peer access is enabled
+_PEERS = set()
 BUILD_INFO = {"seconds": None, "rebuilt": False, "log": BUILD_LOG}
 
 _vp = ctypes.c_void_p
@@ -73,10 +75,11 @@ _SIGNATURES = {
     # counts, row_index, P, repeats * cov, seed_hi, seed_lo, group, out,
     # stream
     "nm_capped_draws": [_vp, _vp, _i, _i, _u, _u, _i, _vp, _vp],
-    # num, cap, n1c, n2c, pos, valid, left, right, L, k, cov, d, ne1, ne2,
-    # ok, stream
-    "nm_stencil": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp,
-                   _vp, _vp, _vp, _vp],
+    # cols [nshards, 3, 6] pointers (host), nshards, L, k, cov, d, ne1,
+    # ne2, ok, stream
+    "nm_stencil_step": [_vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp],
+    # peer card
+    "nm_enable_peer_access": [_i],
     # pos, val, ok, n, genome_len, acc [genome_len, 4], stream
     "nm_accumulate": [_vp, _vp, _vp, _i, _i, _vp, _vp],
 }
@@ -198,3 +201,24 @@ def launch(name: str, entry: str, device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib(), entry)(*args, stream)
     check(rc, name)
+
+
+def enable_peer_access(device, peer) -> None:
+    """Let CUDA card ``device`` read the memory of card ``peer`` (once a
+    pair in this process; nothing to do for one card).  Raises naming both
+    cards when they cannot reach each other: a kernel never stages such
+    reads through the host."""
+    import torch
+    device, peer = torch.device(device), torch.device(peer)
+    pair = (device.index, peer.index)
+    if device == peer or pair in _PEERS:
+        return
+    with torch.cuda.device(device):
+        rc = lib().nm_enable_peer_access(peer.index)
+    if rc == -1:
+        raise RuntimeError(f"{device} cannot read the memory of {peer} "
+                           f"(cudaDeviceCanAccessPeer is 0): the sharded "
+                           f"stencil needs peer access between neighbouring "
+                           f"cards")
+    check(rc, f"peer access {device} -> {peer}")
+    _PEERS.add(pair)

@@ -1,6 +1,7 @@
 # Port of nanomod_tpu/parallel/sharded.py: the shard_map step is a loop
-# over the mesh's shards, the ppermute halo a copy of the neighbours'
-# boundary columns, and the stencil kernel K7 (csrc/stencil.cu).
+# over the mesh's shards, and the ppermute halo exchange with the stencil
+# assembly one launch of kernel K7 a card (csrc/stencil.cu), which reads the
+# neighbours' boundary columns itself (over NVLink between cards).
 """Position-sharded multi-device detection.
 
 The position axis of each (chrom, strand) join is split into one
@@ -9,9 +10,11 @@ contiguous shard a device of the ('data', 'pos') mesh (parallel/mesh.py):
   * the battery components (K3) and, past the per-strand cap, the capped
     KS (K6) run on each shard's slice: rows are independent;
   * the only coupling between shards is the ±k neighbor p-value
-    combination (ref myDetect.py:383): each shard's k boundary columns of
-    (selected KS numerator, ne1, ne2, position, valid) are copied to its
-    neighbours' devices, and K7 assembles the [2k+1, L] stencil there;
+    combination (ref myDetect.py:383): K7 assembles each shard's [2k+1, L]
+    stencil on its card, reading the k boundary columns of (selected KS
+    numerator, ne1, ne2, position, valid) of its neighbours straight from
+    their inputs, one launch for every shard of a card (the plain version
+    copies the columns as halo blocks);
   * the float64 p-value transforms run on the host per shard, through the
     same stats.battery / stats.special code as the single-device path, so
     the sharded run is byte-identical to it.
@@ -36,8 +39,13 @@ _PAD_POS = -(2 ** 30)
 
 
 # ---------------------------------------------------------------------------
-# K7: the neighbor stencil of one shard
+# K7: the neighbor stencil of every shard
 # ---------------------------------------------------------------------------
+
+# shards of one card that share a launch (csrc/stencil.cu kMaxShards: their
+# descriptors travel in the kernel's parameters)
+MAX_SHARDS_A_LAUNCH = 16
+
 
 def stencil_payload(num, cap, n1c, n2c, pos, valid, cov: int):
     """[5, n] int32 rows (selected KS numerator, ne1, ne2, position, valid)
@@ -53,9 +61,9 @@ def stencil_payload(num, cap, n1c, n2c, pos, valid, cov: int):
 
 def stencil_plain(num, cap, n1c, n2c, pos, valid, left, right, *, k: int,
                   cov: int):
-    """Plain PyTorch twin of K7: the [2k+1, L] stencil (d, ne1, ne2 int32,
-    ok bool) of a shard from its [L] vectors and the [5, k] halo blocks of
-    its neighbours (zeros at a mesh edge)."""
+    """The [2k+1, L] stencil (d, ne1, ne2 int32, ok bool) of a shard from
+    its [L] vectors and the [5, k] halo blocks of its neighbours (zeros at
+    a mesh edge)."""
     length = num.shape[0]
     ext = torch.cat([left, stencil_payload(num, cap, n1c, n2c, pos, valid,
                                            cov), right], dim=1)
@@ -72,49 +80,17 @@ def stencil_plain(num, cap, n1c, n2c, pos, valid, left, right, *, k: int,
     return tuple(torch.stack(r) for r in rows)
 
 
-def stencil_cuda(num, cap, n1c, n2c, pos, valid, left, right, *, k: int,
-                 cov: int):
-    """Launch K7 on CUDA tensors; the same result as stencil_plain."""
-    dev = num.device
-    vecs = (num, cap, n1c, n2c, pos)
-    if dev.type != "cuda" or any(t.device != dev for t in
-                                 vecs + (valid, left, right)):
-        raise ValueError("stencil_cuda needs CUDA tensors on one device")
-    length = num.shape[0]
-    if any(t.dtype != torch.int32 or t.shape != (length,) for t in vecs):
-        raise ValueError("num, cap, n1c, n2c and pos must be [L] int32")
-    if valid.shape != (length,) or valid.dtype not in (torch.bool,
-                                                       torch.uint8):
-        raise ValueError("valid must be [L] bool")
-    for h in (left, right):
-        if h.dtype != torch.int32 or h.shape != (5, k):
-            raise ValueError(f"halo blocks must be [5, {k}] int32")
-    if (2 * k + 1) * length >= 2 ** 31 or 2 * k + 1 > 65535:
-        raise ValueError("the stencil must hold fewer than 2^31 entries "
-                         "and at most 65,535 offsets")
-    num, cap, n1c, n2c, pos, left, right = (
-        t.contiguous() for t in (num, cap, n1c, n2c, pos, left, right))
-    valid = valid.to(torch.bool).contiguous()
-    shape = (2 * k + 1, length)
-    d, ne1, ne2 = (torch.empty(shape, dtype=torch.int32, device=dev)
-                   for _ in range(3))
-    ok = torch.empty(shape, dtype=torch.bool, device=dev)
-    kbuild.launch(
-        "stencil", "nm_stencil", dev,
-        num.data_ptr(), cap.data_ptr(), n1c.data_ptr(), n2c.data_ptr(),
-        pos.data_ptr(), valid.data_ptr(), left.data_ptr(), right.data_ptr(),
-        length, k, cov, d.data_ptr(), ne1.data_ptr(), ne2.data_ptr(),
-        ok.data_ptr())
-    kbuild.LAUNCHES["stencil"] += 1
-    return d, ne1, ne2, ok
-
-
-def stencil(num, cap, n1c, n2c, pos, valid, left, right, *, k: int,
-            cov: int):
-    """The shard's stencil on the device of ``num``: the plain version for
-    CPU tensors, kernel K7 for CUDA tensors (raises if it cannot launch)."""
-    fn = stencil_plain if num.device.type == "cpu" else stencil_cuda
-    return fn(num, cap, n1c, n2c, pos, valid, left, right, k=k, cov=cov)
+def _shard_length(shards, k: int) -> int:
+    """The shards' common length L; raises unless every shard has it and
+    k <= L."""
+    length = shards[0][0].shape[0]
+    if any(sh[0].shape[0] != length for sh in shards):
+        raise ValueError("every shard of a stencil step must have one "
+                         "length")
+    if k > length:
+        raise ValueError(f"neighbor window {k} exceeds the shard length "
+                         f"{length}")
+    return length
 
 
 def halos(shards, k: int, cov: int):
@@ -123,10 +99,7 @@ def halos(shards, k: int, cov: int):
     device, in mesh order.  The k boundary columns of each neighbour's
     payload are copied to the shard's device; the mesh's two edges get
     zeros (valid 0)."""
-    length = shards[0][0].shape[0]
-    if k > length:
-        raise ValueError(f"neighbor window {k} exceeds the shard length "
-                         f"{length}")
+    length = _shard_length(shards, k)
 
     def edge(s, cols, dev):
         if s < 0 or s >= len(shards):
@@ -138,11 +111,107 @@ def halos(shards, k: int, cov: int):
             for s, sh in enumerate(shards)]
 
 
-def sharded_stencil(shards, k: int, cov: int):
-    """The stencil of every shard (see halos for ``shards``), each on its
-    shard's device."""
-    return [stencil(*sh, left, right, k=k, cov=cov)
+def sharded_stencil_plain(shards, k: int, cov: int):
+    """Plain PyTorch twin of K7, the whole step: each shard's neighbour
+    columns copied as [5, k] halo blocks (halos), then each shard's
+    stencil (stencil_plain) on its device."""
+    return [stencil_plain(*sh, left, right, k=k, cov=cov)
             for sh, (left, right) in zip(shards, halos(shards, k, cov))]
+
+
+def _check_stencil_shard(sh, length):
+    """The card index of a shard; raises unless its six [L] inputs are
+    contiguous CUDA tensors of that card: five int32, valid bool or
+    uint8."""
+    card = sh[0].get_device()
+    for i, t in enumerate(sh):
+        want = t.dtype is torch.int32 if i < 5 else t.dtype in (torch.bool,
+                                                                 torch.uint8)
+        if (not want or t.get_device() != card or t.shape != (length,)
+                or not t.is_contiguous()):
+            raise ValueError("a shard's num, cap, n1c, n2c, pos (int32) and "
+                             "valid (bool) must be contiguous [L] tensors on "
+                             "one CUDA card")
+    if card < 0:
+        raise ValueError("sharded_stencil_cuda needs CUDA tensors")
+    return card
+
+
+def sharded_stencil_cuda(shards, k: int, cov: int):
+    """K7 on CUDA shards: the whole step in one launch a card (a launch
+    for each MAX_SHARDS_A_LAUNCH shards of a card that holds more), each
+    shard reading its neighbours' columns itself, over NVLink where a
+    neighbour lies on another card (peer access, enabled once a pair of
+    cards; raises naming both where they cannot reach each other).
+    Returns each shard's (d, ne1, ne2, ok) [2k+1, L] on its card, as
+    sharded_stencil_plain."""
+    length = _shard_length(shards, k)
+    if (2 * k + 1) * length >= 2 ** 31 or 2 * k + 1 > 65535:
+        raise ValueError("a shard's stencil must hold fewer than 2^31 "
+                         "entries and at most 65,535 offsets")
+    devs = [torch.device("cuda", _check_stencil_shard(sh, length))
+            for sh in shards]
+    nsh = len(shards)
+    ptrs = [[t.data_ptr() for t in sh] for sh in shards]
+    null = [0] * 6
+    # a shard's own six pointers, then its left and its right neighbour's
+    # (null at a mesh edge)
+    cols = [ptrs[s] + (ptrs[s - 1] if s > 0 else null)
+            + (ptrs[s + 1] if s + 1 < nsh else null) for s in range(nsh)]
+    cards = {}
+    for s, dev in enumerate(devs):
+        cards.setdefault(dev, []).append(s)
+    # the cards each card reads from: peer access, and the reader's stream
+    # waits for the neighbour's work on those inputs
+    reads = {dev: {devs[n] for s in idx for n in (s - 1, s + 1)
+                   if 0 <= n < nsh and devs[n] != dev}
+             for dev, idx in cards.items()}
+    for dev, peers in reads.items():
+        for peer in peers:
+            kbuild.enable_peer_access(dev, peer)
+            torch.cuda.current_stream(dev).wait_stream(
+                torch.cuda.current_stream(peer))
+    out = [None] * nsh
+    rows = 2 * k + 1
+    for dev, idx in cards.items():
+        for lo in range(0, len(idx), MAX_SHARDS_A_LAUNCH):
+            part = idx[lo: lo + MAX_SHARDS_A_LAUNCH]
+            n = len(part)
+            ints = torch.empty((3, n, rows, length), dtype=torch.int32,
+                               device=dev)
+            ok = torch.empty((n, rows, length), dtype=torch.bool, device=dev)
+            table = np.array([cols[s] for s in part], dtype=np.uint64)
+            step = n * rows * length * 4
+            base = ints.data_ptr()
+            kbuild.launch("stencil", "nm_stencil_step", dev,
+                          table.ctypes.data, n, length, k, cov, base,
+                          base + step, base + 2 * step, ok.data_ptr())
+            kbuild.LAUNCHES["stencil"] += 1
+            d, ne1, ne2 = (x.unbind(0) for x in ints.unbind(0))
+            for s, *outs in zip(part, d, ne1, ne2, ok.unbind(0)):
+                out[s] = tuple(outs)
+    # a neighbour's card may reuse its inputs' memory only once the reads
+    # from it have run
+    for dev, peers in reads.items():
+        for peer in peers:
+            torch.cuda.current_stream(peer).wait_stream(
+                torch.cuda.current_stream(dev))
+    return out
+
+
+def sharded_stencil(shards, k: int, cov: int):
+    """The stencil of every shard (``shards``: each shard's (num, cap, n1c,
+    n2c, pos, valid) [L] tensors on its device, in mesh order), each on
+    its shard's device: the plain version when every shard lies on the
+    CPU, kernel K7 when every shard lies on a card (raises if it cannot
+    launch)."""
+    kinds = {sh[0].device.type for sh in shards}
+    if kinds == {"cpu"}:
+        return sharded_stencil_plain(shards, k, cov)
+    if kinds == {"cuda"}:
+        return sharded_stencil_cuda(shards, k, cov)
+    raise ValueError(f"the shards of a stencil step lie on {sorted(kinds)}: "
+                     f"all on the CPU or all on CUDA cards")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -270,11 +339,11 @@ def sharded_join_battery(
                     seed=cfg.downsampling_seed)
             caps.append(cap)
             if want_comb:
-                stencil_in.append((
-                    pk[0].view(torch.int32),
-                    cap if cap is not None else torch.zeros(
-                        shard_len, dtype=torch.int32, device=v1d.device),
-                    cn1d, cn2d, *sh[-2:]))
+                # uncapped, no row exceeds cov and the stencil never reads
+                # the capped numerators: the plain ones stand in for them
+                num = pk[0].view(torch.int32)
+                stencil_in.append((num, num if cap is None else cap, cn1d,
+                                   cn2d, *sh[-2:]))
         nb = (sharded_stencil(stencil_in, int(cfg.neighbor_pvalues), cov)
               if want_comb else None)
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from fixtures import make_genome, make_raw_dataset
+from test_torch_refnative import ALL_LIBS, require_reference_native
 from nanomod_tpu import config as jcfg
 from nanomod_tpu.resquiggle import banded as jb
 from nanomod_tpu.resquiggle.banded_pallas import banded_sw_pallas
@@ -31,6 +32,13 @@ from nanomod_tpu_torch.resquiggle.pipeline import (
 # 2M+W is a multiple of 4 at W = 4 and 100 only
 WIDTHS = (4, 31, 33, 100, 130)
 B, M = 8, 32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*ALL_LIBS)
 
 
 def _inputs(w):

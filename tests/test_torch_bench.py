@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import fixtures as jfix
+from test_torch_refnative import ALL_LIBS, require_reference_native
 from nanomod_tpu_torch import bench as tbench
 from nanomod_tpu_torch.tools import fixtures as tfix
 
@@ -30,6 +31,13 @@ SMALL = {"BENCH_POSITIONS": "3000", "BENCH_READS": "12",
          "BENCH_READ_LEN": "400", "BENCH_E2E_GENOME": "600",
          "BENCH_E2E_READS": "16", "BENCH_ANNOTATE_REPEAT": "1",
          "BENCH_E2E_REPEAT": "1"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*ALL_LIBS)
 
 
 def _jax_bench():

@@ -19,6 +19,7 @@ import sys
 
 import pytest
 
+from test_torch_refnative import DETECT_LIBS, require_reference_native
 from nanomod_tpu import cli as jax_cli
 from nanomod_tpu_torch import cli as torch_cli
 
@@ -26,6 +27,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data")
 COPIES = 64
 RANK1 = {100: "spel + 981 A", 200: "spel - 501 T"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*DETECT_LIBS)
 
 
 @pytest.fixture(scope="module")

@@ -379,7 +379,8 @@ def test_k7_matches_plain(dev, k, cov):
     shards = _stencil_shards(rng, dev, 4, 300, cov)
     before = kbuild.launch_counts()["stencil"]
     got = sharded.sharded_stencil(shards, k, cov)
-    assert kbuild.launch_counts()["stencil"] == before + 4
+    # the whole step, four shards of one card, is one launch
+    assert kbuild.launch_counts()["stencil"] == before + 1
     cpu = [tuple(t.cpu() for t in sh) for sh in shards]
     want = sharded.sharded_stencil(cpu, k, cov)
     for g, w in zip(got, want):
@@ -387,21 +388,110 @@ def test_k7_matches_plain(dev, k, cov):
             assert torch.equal(a.cpu(), b)
 
 
-def test_k9_matches_plain(dev):
+@pytest.mark.parametrize("length,k", [(4, 2), (4, 4), (5, 3)])
+def test_k7_short_shards_match_plain(dev, length, k):
+    """k >= L / 2 (k = L: a column's window reaches across the whole
+    neighbour shard), five shards."""
+    from nanomod_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(700 + 10 * length + k)
+    shards = _stencil_shards(rng, dev, 5, length, 30)
+    got = sharded.sharded_stencil(shards, k, 30)
+    want = sharded.sharded_stencil_plain(
+        [tuple(t.cpu() for t in sh) for sh in shards], k, 30)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_k7_step_is_one_kernel_and_nothing_else(dev):
+    """The profiler sees one device operation a sharded stencil step of
+    four shards: K7's launch (no halo op, copy or fill).  The card idles
+    50 ms on either side: the tracer misses the start of its window."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+    from nanomod_tpu_torch.parallel import sharded
+    shards = _stencil_shards(np.random.default_rng(71), dev, 4, 4096, 200)
+    sharded.sharded_stencil(shards, 2, 200)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(5):
+            sharded.sharded_stencil(shards, 2, 200)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 5, names
+    assert all("stencil_step_kernel" in name for name in names), names
+
+
+def _k9_equal(dev, pos, val, ok, g):
+    """K9 on the card against the plain version and index_add_: counts
+    equal, sums within rtol 1e-5 and atol 1e-5."""
     from nanomod_tpu_torch.parallel import mesh
+    t = [torch.from_numpy(x).to(dev) for x in (pos, val, ok)]
+    before = kbuild.launch_counts()["accumulate"]
+    got = [x.cpu() for x in mesh.accumulate(*t, g)]
+    assert kbuild.launch_counts()["accumulate"] == before + 1
+    assert all(x.shape == (g,) for x in got)
+    want = mesh.accumulate_plain(*(x.cpu() for x in t), g)
+    p = torch.from_numpy(pos.reshape(-1).astype(np.int64))
+    p = torch.where(p < 0, p + g + 1, p)
+    keep = torch.from_numpy(ok.reshape(-1)) & (p >= 0) & (p < g)
+    lib = torch.zeros(g).index_add_(0, p[keep], torch.ones(int(keep.sum())))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[0], lib)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_k9_matches_plain(dev):
     rng = np.random.default_rng(9)
     g = 5000
     pos = rng.integers(-5, g + 5, 200_000).astype(np.int32)
     val = rng.normal(0, 1, 200_000).astype(np.float32)
     ok = rng.random(200_000) < 0.9
-    t = [torch.from_numpy(x).to(dev) for x in (pos, val, ok)]
-    before = kbuild.launch_counts()["accumulate"]
-    got = [x.cpu() for x in mesh.accumulate(*t, g)]
-    assert kbuild.launch_counts()["accumulate"] == before + 1
-    want = mesh.accumulate_plain(*(x.cpu() for x in t), g)
-    assert torch.equal(got[0], want[0])
-    for a, b in zip(got[1:], want[1:]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    _k9_equal(dev, pos, val, ok, g)
+
+
+@pytest.mark.parametrize("g", [5000, 4_641_652])
+def test_k9_read_major_matches_plain(dev, g):
+    """distributed_detect_step's shape: [R, L] reads of consecutive
+    positions (one or two events a base) starting anywhere in [-L, G)."""
+    rng = np.random.default_rng(90)
+    r, length = 512, 1024
+    start = rng.integers(-length, g, (r, 1))
+    pos = (start + np.cumsum(rng.integers(0, 2, (r, length)), axis=1)
+           ).astype(np.int32)
+    val = rng.normal(0, 1, (r, length)).astype(np.float32)
+    ok = rng.random((r, length)) < 0.9
+    _k9_equal(dev, pos, val, ok, g)
+
+
+@pytest.mark.parametrize("case", ["wrap", "one_position", "empty",
+                                  "none_ok", "large_genome"])
+def test_k9_edge_cases_match_plain(dev, case):
+    """Negative positions wrap to p + G + 1 (-1 dropped, -2 the last
+    position, below -(G + 1) dropped); every event on one position; no
+    events; none ok; a genome of 40 M positions."""
+    rng = np.random.default_rng(91)
+    g, n = 5000, 100_000
+    if case == "wrap":
+        pos = np.array([-1, -2, -3, -g - 1, -g - 2, -3 * g, g, g + 1, 0,
+                        g - 1] * 1000, np.int32)
+    elif case == "one_position":
+        pos = np.full(2000, 4097, np.int32)
+    elif case == "empty":
+        pos = np.zeros(0, np.int32)
+    elif case == "large_genome":
+        g = 40_000_000
+        pos = rng.integers(-3, g + 3, n).astype(np.int32)
+    else:
+        pos = rng.integers(0, g, n).astype(np.int32)
+    val = rng.normal(0, 1, pos.size).astype(np.float32)
+    ok = (np.zeros(pos.size, bool) if case == "none_ok"
+          else rng.random(pos.size) < 0.9)
+    _k9_equal(dev, pos, val, ok, g)
 
 
 def test_pooled_rank_components_on_k3_match_plain(dev):
@@ -428,8 +518,8 @@ def test_pooled_rank_components_on_k3_match_plain(dev):
 @pytest.mark.parametrize("method,cov", [("stouffer", 0), ("fisher", 40),
                                         ("stouffer", 40)])
 def test_sharded_join_battery_on_card_equals_single_device(dev, method, cov):
-    """Four shards on one card (K3, K6, K7 a shard): every float64 column
-    bit-equal to run_battery on the card plus the host combination."""
+    """Four shards on one card (K3, K6 a shard, one K7 launch for the
+    four): every float64 column bit-equal to run_battery on the card plus the host combination."""
     from nanomod_tpu_torch.config import StatConfig
     from nanomod_tpu_torch.parallel import mesh, sharded
     from nanomod_tpu_torch.stats.combine import combine_neighbor_pvalues
@@ -448,7 +538,7 @@ def test_sharded_join_battery_on_card_equals_single_device(dev, method, cov):
         want_mstd=True)
     after = kbuild.launch_counts()
     assert after["battery"] == before["battery"] + 4
-    assert after["stencil"] == before["stencil"] + 4
+    assert after["stencil"] == before["stencil"] + 1
     assert after["capped_ks"] == before["capped_ks"] + (4 if cov else 0)
     want = battery.run_battery(v1, n1, v2, n2, cfg=cfg, device=dev,
                                want_mstd=True)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from fixtures import make_genome, make_raw_dataset
+from test_torch_refnative import ALL_LIBS, require_reference_native
 from nanomod_tpu import config as jcfg
 from nanomod_tpu.detect import run_detect as jax_run_detect
 from nanomod_tpu.resquiggle.pipeline import annotate_folder as jax_annotate
@@ -23,6 +24,13 @@ from nanomod_tpu_torch import cli as torch_cli
 from nanomod_tpu_torch import config as tcfg
 
 MOD_POS = 201
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*ALL_LIBS)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from fixtures import make_genome, make_raw_dataset
+from test_torch_refnative import ALL_LIBS, require_reference_native
 from test_external_align import FAKE_MINIMAP2
 from nanomod_tpu import config as jcfg
 from nanomod_tpu.io.fasta import FastaIndex as JaxFastaIndex
@@ -33,6 +34,13 @@ from nanomod_tpu_torch.resquiggle import external as text
 from nanomod_tpu_torch.resquiggle.pipeline import annotate_files
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*ALL_LIBS)
 
 
 @pytest.fixture()

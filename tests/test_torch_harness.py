@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from fixtures import make_corrected_dataset, make_genome
+from test_torch_refnative import DETECT_LIBS, require_reference_native
 from nanomod_tpu import cli as jax_cli
 from nanomod_tpu.config import RankConfig, SimulateConfig, replace
 from nanomod_tpu.harness import simulate as jsim
@@ -25,6 +26,13 @@ from nanomod_tpu_torch import config as tconfig
 from nanomod_tpu_torch.harness import simulate as tsim
 
 MOD_POS = 120
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*DETECT_LIBS)
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,8 @@
 """The port's multi-card paths, on a machine with two or more CUDA cards.
 
   * every kernel (K1, K2, K3, K6, K7, K9) launched on a card that is not
-    the current one, against its plain version;
+    the current one, against its plain version; K7 with its neighbours on
+    other cards (read through peer access);
   * the sharded battery and the mesh step over the cards, against one card;
   * Annotate with its DP batches dealt over the cards, and detect with its
     joins sharded over them (``n_devices``), byte-equal to one card;
@@ -95,23 +96,45 @@ def test_k3_k6_on_a_card_that_is_not_current(cards):
         assert torch.equal(g, w)
 
 
-def test_k7_k9_on_a_card_that_is_not_current(cards):
-    from nanomod_tpu_torch.parallel import sharded
-    rng = np.random.default_rng(3)
-    length, k, cov = 500, 2, 30
-    cols = [rng.integers(0, 5000, length), rng.integers(0, 5000, length),
-            rng.integers(1, 61, length), rng.integers(1, 61, length),
-            np.cumsum(rng.integers(1, 3, length))]
-    cols = [c.astype(np.int32) for c in cols]
-    valid = np.arange(length) < length - 7
-    halo = rng.integers(0, 40, (2, 5, k)).astype(np.int32)
-    halo[:, 4] = 1
+def _stencil_arrays(rng, p, cov):
+    """(num, cap, n1c, n2c, pos, valid) of p positions: two joins, capped
+    and uncapped rows, 7 padding rows at the end."""
+    hi = 2 * cov
+    cols = [rng.integers(0, 5000, p), rng.integers(0, 5000, p),
+            rng.integers(1, hi + 1, p), rng.integers(1, hi + 1, p),
+            np.concatenate([np.cumsum(rng.integers(1, 3, p // 3)),
+                            3 + np.cumsum(rng.integers(1, 3, p - p // 3))])]
+    return [c.astype(np.int32) for c in cols] + [np.arange(p) < p - 7]
 
-    def k7(*t):
-        return sharded.stencil(*t[:6], t[6][0], t[6][1], k=k, cov=cov)
-    got, want = _elsewhere(cards, k7, *cols, valid, halo)
+
+def _step_on(devices, arrays, k, cov):
+    """The sharded stencil step with shard s of ``arrays`` on devices[s],
+    every output on the CPU."""
+    from nanomod_tpu_torch.parallel import sharded
+    length = len(arrays[0]) // len(devices)
+    shards = [tuple(torch.from_numpy(a[s * length:(s + 1) * length]).to(d)
+                    for a in arrays) for s, d in enumerate(devices)]
+    out = sharded.sharded_stencil(shards, k, cov)
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+    return [[t.cpu() for t in o] for o in out]
+
+
+def test_k7_k9_on_a_card_that_is_not_current(cards):
+    """K7's step with its three shards on the last card, and K9 there,
+    while cuda:0 stays current."""
+    rng = np.random.default_rng(3)
+    k, cov = 2, 30
+    arrays = _stencil_arrays(rng, 3 * 500, cov)
+    other = cards[-1]
+    assert torch.cuda.current_device() == 0
+    got = _step_on([other] * 3, arrays, k, cov)
+    assert torch.cuda.current_device() == 0
+    want = _step_on([torch.device("cpu")] * 3, arrays, k, cov)
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        for a, b in zip(g, w):
+            assert torch.equal(a, b)
 
     g_len = 5000
     pos = rng.integers(-3 * g_len, g_len + 5, 100_000).astype(np.int32)
@@ -122,6 +145,26 @@ def test_k7_k9_on_a_card_that_is_not_current(cards):
     assert torch.equal(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,cov", [(2, 200), (5, 0)])
+def test_k7_neighbours_on_other_cards_match_plain(cards, k, cov):
+    """K7 with each shard on its own card: the halo columns are read over
+    NVLink through peer access, one launch a card; array-equal to the
+    plain step on the CPU.  Then two shards a card, in turn (every shard's
+    neighbours on other cards)."""
+    rng = np.random.default_rng(30 + k)
+    n = len(cards)
+    arrays = _stencil_arrays(rng, 2 * n * 4096, cov or 30)
+    for devices in (cards, [cards[s % n] for s in range(2 * n)]):
+        before = kbuild.launch_counts()["stencil"]
+        got = _step_on(devices, arrays, k, cov)
+        assert kbuild.launch_counts()["stencil"] == before + n
+        want = _step_on([torch.device("cpu")] * len(devices), arrays, k,
+                        cov)
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("cov", [0, 40])

@@ -25,10 +25,18 @@ import sys
 import pytest
 
 from fixtures import make_corrected_dataset, make_genome, make_raw_dataset
+from test_torch_refnative import ALL_LIBS, require_reference_native
 from nanomod_tpu import config as jcfg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPROC = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*ALL_LIBS)
 
 
 def _free_port():

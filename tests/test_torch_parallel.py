@@ -6,9 +6,12 @@ port's mesh is a list of 8 CPU devices (``make_mesh(8, devices=["cpu"] *
 plain versions.
 Inputs are made with numpy from a seed and handed to both:
 
-  * K7's plain version (the neighbor stencil with its halo) against
-    ``_stencil_fn``: k in {0, 1, 2, 5}, cov 0 and > 0, a join boundary and
-    padding; array-equal;
+  * K7's plain version (the neighbor stencil with its halo; the whole
+    step, the CUDA path's twin) against ``_stencil_fn``: k in {0, 1, 2,
+    5}, cov 0 and > 0, a join boundary, padding, valid columns at both
+    mesh edges and shards of 4 columns with k up to 4; array-equal;
+  * K9's plain version against ``_accumulate`` on uniform and read-major
+    draws with negative and out-of-range positions;
   * ``sharded_join_battery``: every float64 column equal;
   * ``detect`` with 8 shards: the ``_sign_test.txt`` / ``_meanstd.cvs``
     byte-equal to the JAX package's ``--n_devices 8`` files;
@@ -30,6 +33,7 @@ import pytest
 import torch
 
 from fixtures import make_corrected_dataset, make_genome
+from test_torch_refnative import ALL_LIBS, require_reference_native
 from nanomod_tpu import config as jcfg
 from nanomod_tpu.accum.pools import PoolBuilder as JaxPoolBuilder
 from nanomod_tpu.parallel import dist as jdist
@@ -46,6 +50,13 @@ from nanomod_tpu_torch.parallel import dist, mesh, sharded
 from nanomod_tpu_torch.stats import kernels
 
 NSH = 8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*ALL_LIBS)
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +136,67 @@ def test_stencil_plain_equals_jax(jmesh, k, cov):
         cat = torch.cat([g[i] for g in got], dim=1).numpy()
         np.testing.assert_array_equal(cat, want[i], err_msg=name)
     assert want[3].any() and not want[3].all()
+
+
+def _step_inputs(rng, p, cov):
+    """Every column valid, a join boundary in the middle: the mesh's first
+    and last shards hold real positions at its edges."""
+    hi = 2 * cov if cov else 60
+    num = rng.integers(0, 1 << 20, p).astype(np.int32)
+    cap = rng.integers(0, 1 << 20, p).astype(np.int32)
+    n1c = rng.integers(1, hi + 1, p).astype(np.int32)
+    n2c = rng.integers(1, hi + 1, p).astype(np.int32)
+    cut = p // 2 + 3
+    pos = np.concatenate([np.cumsum(rng.integers(1, 3, cut)),
+                          np.cumsum(rng.integers(1, 3, p - cut))])
+    return num, cap, n1c, n2c, pos.astype(np.int32), np.ones(p, bool)
+
+
+def _shards_of(arrays, nsh):
+    length = len(arrays[0]) // nsh
+    tensors = [torch.from_numpy(a) for a in arrays]
+    return [tuple(t[s * length:(s + 1) * length] for t in tensors)
+            for s in range(nsh)]
+
+
+def _assert_step_equals_jax(got, want):
+    for i, name in enumerate(("d", "ne1", "ne2", "ok")):
+        cat = torch.cat([g[i] for g in got], dim=1).numpy()
+        np.testing.assert_array_equal(cat, want[i], err_msg=name)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("cov", [0, 200])
+def test_sharded_stencil_plain_equals_jax(jmesh, k, cov):
+    """The whole step's plain version (the CUDA path's twin: halo blocks,
+    then each shard's stencil) on 8 CPU shards against _stencil_fn, with
+    valid columns at both mesh edges: their missing neighbours are not
+    ok."""
+    rng = np.random.default_rng(1000 + 10 * k + cov)
+    length = 24
+    arrays = _step_inputs(rng, NSH * length, cov)
+    want = [np.asarray(x) for x in _stencil_fn(jmesh, k, cov)(*arrays)]
+    got = sharded.sharded_stencil_plain(_shards_of(arrays, NSH), k, cov)
+    _assert_step_equals_jax(got, want)
+    ok = want[3]
+    assert not ok[:k, 0].any() and not ok[k + 1:, -1].any()
+    assert ok[k - 1, 1:].any() and ok[k + 1, :-1].any()
+    if cov:
+        capped = (arrays[2] > cov) | (arrays[3] > cov)
+        assert capped.any() and not capped.all()
+        np.testing.assert_array_equal(want[0][k], np.where(
+            capped, arrays[1], arrays[0]))
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_sharded_stencil_short_shards_equal_jax(jmesh, k):
+    """Shards of 4 columns with k >= L / 2 (k = L: the window reaches the
+    far edge of each neighbour)."""
+    rng = np.random.default_rng(2000 + k)
+    arrays = _step_inputs(rng, NSH * 4, 30)
+    want = [np.asarray(x) for x in _stencil_fn(jmesh, k, 30)(*arrays)]
+    got = sharded.sharded_stencil(_shards_of(arrays, NSH), k, 30)
+    _assert_step_equals_jax(got, want)
 
 
 def test_stencil_window_wider_than_shard_raises():
@@ -344,6 +416,38 @@ def test_accumulate_plain_drops_like_the_reference(case):
     assert (pos < -1).any() and (pos >= g).any()
 
 
+def _draw(kind, rng, g):
+    """Events as distributed_detect_step gets them, [R, L]: ``uniform``
+    positions over [-g - 3, g + 3), or ``read_major`` reads of consecutive
+    positions (one or two events a base) starting uniformly over [-L, g):
+    both hold negative positions and positions past the genome."""
+    r, length = 24, 40
+    if kind == "uniform":
+        pos = rng.integers(-g - 3, g + 3, (r, length))
+    else:
+        start = rng.integers(-length, g, (r, 1))
+        pos = start + np.cumsum(rng.integers(0, 2, (r, length)), axis=1)
+    return (pos.astype(np.int32),
+            rng.normal(0, 1, (r, length)).astype(np.float32),
+            rng.random((r, length)) < 0.9)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "read_major"])
+def test_accumulate_plain_equals_jax_draws(kind):
+    from nanomod_tpu.parallel.mesh import _accumulate as jax_accumulate
+    g = 300
+    pos, val, ok = _draw(kind, np.random.default_rng(7), g)
+    assert (pos < -1).any() and (pos >= g).any()
+    want = [np.asarray(x) for x in jax_accumulate(pos, val, ok,
+                                                  genome_len=g)]
+    got = [t.numpy() for t in mesh.accumulate_plain(
+        *(torch.from_numpy(x) for x in (pos, val, ok)), g)]
+    np.testing.assert_array_equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+    assert want[0].sum() > 0.5 * ok.sum()
+
+
 # ---------------------------------------------------------------------------
 # launches on a card that is not the current one, and the Annotate fan-out
 # ---------------------------------------------------------------------------
@@ -380,6 +484,10 @@ class _FakeCard:
     def nm_error_string(self, rc):
         return b"invalid resource handle"
 
+    def nm_enable_peer_access(self, peer):
+        self.calls.append((self.current, peer))
+        return self.rc
+
 
 @pytest.mark.parametrize("rc", [0, 400])
 def test_launch_makes_the_tensors_card_current(monkeypatch, rc):
@@ -397,6 +505,33 @@ def test_launch_makes_the_tensors_card_current(monkeypatch, rc):
     else:
         kbuild.launch("fake", "nm_fake", dev, 7, 8)
     assert card.calls == [(dev, (7, 8, 1001))]
+    assert card.current == torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("rc", [0, -1, 400])
+def test_peer_access_enabled_once_or_raises(monkeypatch, rc):
+    """kbuild.enable_peer_access asks with the reading card current, once
+    a pair; two cards that cannot reach each other (-1) raise naming both,
+    and so does a CUDA error."""
+    card = _FakeCard(rc)
+    monkeypatch.setattr(torch.cuda, "device", card.device)
+    monkeypatch.setitem(kbuild._LIB, "lib", card)
+    monkeypatch.setattr(kbuild, "_PEERS", set())
+    a, b = torch.device("cuda", 2), torch.device("cuda", 3)
+    kbuild.enable_peer_access(a, a)
+    assert card.calls == []
+    if rc == -1:
+        with pytest.raises(RuntimeError, match="cuda:2 cannot read the "
+                                               "memory of cuda:3"):
+            kbuild.enable_peer_access(a, b)
+    elif rc:
+        with pytest.raises(RuntimeError, match="invalid resource handle"):
+            kbuild.enable_peer_access(a, b)
+    else:
+        kbuild.enable_peer_access(a, b)
+        kbuild.enable_peer_access(a, b)
+        assert kbuild._PEERS == {(2, 3)}
+    assert card.calls == [(a, 3)]
     assert card.current == torch.device("cuda", 0)
 
 

@@ -16,10 +16,18 @@ import numpy as np
 import pytest
 
 from fixtures import make_corrected_dataset, make_genome
+from test_torch_refnative import DETECT_LIBS, require_reference_native
 from nanomod_tpu import config as jcfg
 from nanomod_tpu.detect import run_detect as jax_run_detect
 from nanomod_tpu_torch import config as tcfg
 from nanomod_tpu_torch.parallel import shardmerge
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*DETECT_LIBS)
 
 
 def _thread_gather(n):

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 from tools import scale_fullchain as jfc
+from test_torch_refnative import ALL_LIBS, require_reference_native
 from tools import scale_quality as jsq
 from nanomod_tpu_torch.tools import scale_fullchain as tfc
 from nanomod_tpu_torch.tools import scale_quality as tsq
@@ -31,6 +32,13 @@ MANIFEST = os.path.join(REPO, "tools", "scale_manifest.json")
 # tiny: reads of 1,000 bases over 5,000 (full chain) or 6,000 bases
 FC_SIZES = dict(GENOME_LEN=5_000, N_READS=30, READ_LEN=1_000)
 SQ_SIZES = dict(GENOME_LEN=6_000, N_READS=24, READ_LEN=600)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_native():
+    """The JAX package's native libraries loaded, so that its paths
+    here never take their Python fallback (test_torch_refnative.py)."""
+    require_reference_native(*ALL_LIBS)
 
 
 def _read_bytes(path):
