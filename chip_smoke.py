@@ -12,13 +12,17 @@ Phase 1  K1 (banded DP) and K2 (the traceback walk, its codes one a byte
          (genome windows with ~5 % substitutions and indels, some reads
          shorter than their bucket, some N codes), W = 128, M = 1024 (the
          bucket of the main path's reads), 2048, 4096, 8192, and W = 130,
-         100, 1025, 2048 and 4096 at M = 1024 (above 1024: K1's block of
-         warps a read, ragged at 1025, and K2's windowed walk); then a batch rich in ties (tandem repeats
+         100, 1024, 1025, 2048 and 4096 at M = 1024 (1024: the narrow K1's
+         widest band, one warp a read; above 1024: K1's wide kernel, a
+         block of warps a read under the launch plan of its width, ragged
+         at 1025, and K2's windowed walk); then a batch rich in ties (tandem repeats
          whose best score is reached at several cells), an all-mismatch
          batch (best 0 at (0, 0)), a ragged B = 37, W = 32 and W = 1024 at
          M = 256, and B = 37, M = 256 at W = 1, 4, 31, 33, 100, 130, 1000
          (off the grids of 32 and 4).  tb, best, best_i, best_k and both
-         walk outputs must be array-equal.  Each kernel's time is printed
+         walk outputs must be array-equal, and K2's rows with the DP header
+         (banded.walk_outputs, bests moved to x.5 and off it) byte-equal to
+         pack_outputs of the walk in every mode.  Each kernel's time is printed
          beside its bound (the plain versions timed at M = 1024) and the
          range of single launches recorded for the first kernels
          (PERF.md).
@@ -56,7 +60,12 @@ Phase 3  the main path through its entry points: ``python -m
          band_width 130 on 256 of the raw smoke reads (the walk in mode
          "codes") and at 2048 on 64 (mode "codes2", K1's block of warps a
          read), on the card and on the CPU: K1 and K2 launched, every
-         corrected FAST5 byte-equal; the reduced full chain: ``python -m
+         corrected FAST5 byte-equal; the main path's Annotate (band width
+         128, 256 smoke reads: a DP batch a length bucket) in process under
+         torch.profiler: a DP batch's device operations are K1, K2 (which
+         writes the rows the host fetches, header included), one
+         host-to-device and one device-to-host copy, nothing else, and no
+         pack_outputs runs; the reduced full chain: ``python -m
          nanomod_tpu_torch.tools.scale_fullchain --device cuda`` on raw
          FAST5s the native raw writer wrote (a 100,000-base genome, 400
          reads of 3 kb a group: M = 4096), 16 of its control reads
@@ -219,8 +228,16 @@ DP_RAGGED_B = 37
 DP_OFF_GRID = (1, 4, 31, 33, 100, 130, 1000)
 DP_OFF_GRID_MAIN = (130, 100)
 # band widths above 1024 (K1: a block of warps a read, ragged at 1025; K2:
-# the windowed walk, both modes at 2048 and 4096) at the main shape
+# the windowed walk, both modes at 2048 and 4096) at the main shape, and
+# the narrow K1's widest band (one warp of 32 lanes a thread a read) beside
+# them
 DP_WIDE = (1025, 2048, 4096)
+DP_NARROW_TOP = 1024
+# the bests' fractional parts in phase 1's header checks (round half to
+# even), cycled over a batch
+HALF_BESTS = (0.5, -0.5, 1.5, 2.5, 0.0, -1.5)
+# the traced Annotate: copies of each smoke read (16 reads, 256 in all)
+TRACED_ANNOTATE_COPIES = 16
 # phase 4's tile above the old cap of 645: widths, rows, cov
 DEEP_CAPS = (1000, 290)
 DEEP_P = 256
@@ -463,12 +480,13 @@ def k1_work(read, ref, tb):
                 f32_ops=K1_OPS_PER_CELL * tb.numel())
 
 
-def k2_work(torch, codes, packed=True):
+def k2_work(torch, codes, packed=True, header=False):
     """K2's bytes for this run's walks (a tb byte a step taken, best_i and
-    best_k, the codes written: four a byte when ``packed``, else one) and
+    best_k, the codes written: four a byte when ``packed``, else one; with
+    ``header`` also best read and the 12-byte header written a read) and
     integer operations.  The steps are the non-zero codes plus at most one
     stop step a read."""
-    written = codes.numel()
+    written = codes.numel() + (16 * codes.shape[0] if header else 0)
     if packed:
         shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
                               device=codes.device)
@@ -636,6 +654,17 @@ def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
     for (ck, cp), mode in zip(pairs, ("codes", "codes2")):
         if not torch.equal(ck, cp):
             raise AssertionError(f"K2 {mode} differ from plain: {what}")
+    # K2 with the DP header (bests moved to x.5 and off it): the rows of
+    # pack_outputs, byte for byte
+    half = torch.tensor(HALF_BESTS, dtype=torch.float32, device=tb.device)
+    hb = k_out[1] + half.repeat(len(bi) // len(HALF_BESTS) + 1)[:len(bi)]
+    for (_, cp), packed in list(zip(pairs, (False, True))):
+        rows = banded.walk_outputs(tb, hb, bi, bk, packed=packed)[0]
+        want = banded.pack_outputs(cp, hb, bi, bk)
+        if not torch.equal(rows, want):
+            raise AssertionError(f"K2's header rows differ from "
+                                 f"pack_outputs (packed={packed}): {what}")
+        pairs.append((rows, want))
     return (k_out, max_abs_err(torch, zip(k_out, p_out)),
             max_abs_err(torch, pairs))
 
@@ -650,7 +679,8 @@ def phase1(torch, dev):
 
     out = {}
     main = [(m, W) for m in DP_BUCKETS] \
-        + [(MAIN_PATH_BUCKET, w) for w in DP_OFF_GRID_MAIN + DP_WIDE]
+        + [(MAIN_PATH_BUCKET, w)
+           for w in DP_OFF_GRID_MAIN + (DP_NARROW_TOP,) + DP_WIDE]
     for m, w in main:
         read, ref, lens = on_card(synth_reads(rng, DP_BATCH, m, w))
         k_out, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
@@ -660,8 +690,11 @@ def phase1(torch, dev):
         ck, packed = banded.walk(tb, bi, bk)
         walk_plain = (banded.walk_packed_plain if packed
                       else banded.walk_device_plain)
+        best = k_out[1]
         k1 = lambda: banded_sw_cuda(read, ref, lens)  # noqa: E731
         k2 = lambda: banded.walk(tb, bi, bk)  # noqa: E731
+        # the main path's K2: the walk and the DP header in one launch
+        k2h = lambda: banded.walk_outputs(tb, best, bi, bk)  # noqa: E731
         res = {
             "M": m, "B": DP_BATCH, "W": w,
             "walk_mode": "codes2" if packed else "codes",
@@ -670,6 +703,11 @@ def phase1(torch, dev):
             "k1_single_ms": time_ms(torch, k1, n=1),
             "k2_ms": time_ms(torch, k2),
             "k2_single_ms": time_ms(torch, k2, n=1),
+            "k2h_ms": time_ms(torch, k2h),
+            "k2h_single_ms": time_ms(torch, k2h, n=1),
+            # the parent's path: the walk, then pack_outputs' PyTorch ops
+            "k2_pack_ms": time_ms(torch, lambda: banded.pack_outputs(
+                k2()[0], best, bi, bk)),
             "mean_best": float(k_out[1].mean()),
         }
         if m == MAIN_PATH_BUCKET:
@@ -679,10 +717,16 @@ def phase1(torch, dev):
                 **PLAIN_TIMING)
             res["k2_plain_ms"] = time_ms(
                 torch, lambda: walk_plain(tb, bi, bk), **PLAIN_TIMING)
+            res["k2h_plain_ms"] = time_ms(
+                torch, lambda: banded.pack_outputs(walk_plain(tb, bi, bk),
+                                                   best, bi, bk),
+                **PLAIN_TIMING)
         res["k1_bound_ms"], res["k1_bound_by"] = bound(**k1_work(read, ref,
                                                                  tb))
         res["k2_bound_ms"], res["k2_bound_by"] = bound(**k2_work(
             torch, ck, packed=res["walk_mode"] == "codes2"))
+        res["k2h_bound_ms"], res["k2h_bound_by"] = bound(**k2_work(
+            torch, ck, packed=res["walk_mode"] == "codes2", header=True))
         log("phase1", json.dumps(res))
         if (m, w) == (MAIN_PATH_BUCKET, W):
             for name, key in (("banded_sw", "k1"), ("walk", "k2")):
@@ -1191,6 +1235,86 @@ def phase3_band_width(torch, dev, tmp, width, n_reads):
     log("phase3 band width", json.dumps(res))
     for d in dirs.values():
         shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def phase3_traced_annotate(torch, dev, tmp):
+    """The main path's Annotate (band width 128, the 16 smoke reads of the
+    control group copied TRACED_ANNOTATE_COPIES times, a DP batch a length
+    bucket) in process under torch.profiler.  A DP batch's device operations must
+    be K1, K2 (which writes the rows the host fetches, header and codes),
+    one host-to-device copy (the batch's inputs in one buffer) and one
+    device-to-host copy, and nothing else: no plain pack_outputs on the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+    from nanomod_tpu_torch.config import AnnotateConfig
+    from nanomod_tpu_torch.kernels import build as kbuild
+    from nanomod_tpu_torch.resquiggle import banded, pipeline
+    data = os.path.join(ROOT, "nanomod_tpu_torch", "smoke_data")
+    folder = os.path.join(tmp, "traced_annotate")
+    _copy_group(os.path.join(data, "ctrl"), folder, TRACED_ANNOTATE_COPIES)
+    batches = []
+    dispatch, pack = pipeline.dispatch_dp, banded.pack_outputs
+
+    def counting(*a, **kw):
+        batch = dispatch(*a, **kw)
+        if batch is not None:
+            batches.append(len(batch.reads))
+        return batch
+
+    def refuse(*a, **kw):
+        raise AssertionError("pack_outputs ran on the main path")
+
+    cfg = AnnotateConfig(wrk_base1=folder,
+                         ref_fasta=os.path.join(data, "ref.fa"),
+                         band_width=W)
+    pipeline.dispatch_dp, banded.pack_outputs = counting, refuse
+    kbuild.reset_launches()
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            n_ok, _ = pipeline.annotate_folder(cfg, device=dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        pipeline.dispatch_dp, banded.pack_outputs = dispatch, pack
+    kinds = {"k1": ("banded_sw_kernel",),
+             "k2": ("walk_kernel", "walk_wide_kernel"),
+             "h2d": ("Memcpy HtoD",), "d2h": ("Memcpy DtoH",)}
+    counts = dict.fromkeys(kinds, 0)
+    device_us = dict.fromkeys(kinds, 0.0)
+    other = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for k, keys in kinds.items()
+                     if any(key in e.key for key in keys)), None)
+        if kind is None:
+            other[e.key[:80]] = e.count
+        else:
+            counts[kind] += e.count
+            device_us[kind] += _device_us(e)
+    res = {"reads": len(os.listdir(folder)), "reads_ok": n_ok,
+           "seconds": seconds, "dp_batches": len(batches),
+           "device_ops": counts, "device_ms": {
+               k: v / 1e3 for k, v in device_us.items()},
+           "other_device_ops": other,
+           "launches": {k: v for k, v in kbuild.launch_counts().items()
+                        if k in ("banded_sw", "walk")}}
+    log("phase3 traced Annotate", json.dumps(res))
+    if other:
+        raise AssertionError(f"a DP batch ran device operations beside K1, "
+                             f"K2 and its two copies: {other}")
+    # the tracer can miss events; it may not add any
+    if not all(1 <= counts[k] <= len(batches) for k in kinds) or \
+            res["launches"] != {"banded_sw": len(batches),
+                                "walk": len(batches)}:
+        raise AssertionError(f"traced Annotate: {res}")
+    if n_ok < 0.9 * res["reads"]:
+        raise AssertionError(f"traced Annotate: {n_ok} of {res['reads']}")
+    shutil.rmtree(folder, ignore_errors=True)
     return res
 
 
@@ -2275,6 +2399,7 @@ def main() -> int:
     try:
         p3, groups = phase3(torch, dev, tmp)
         p3["trace"] = phase3_traced_detect(tmp, dev)
+        p3["annotate_trace"] = phase3_traced_annotate(torch, dev, tmp)
         p3["band_width"] = {w: phase3_band_width(torch, dev, tmp, w, n)
                             for w, n in ANNOTATE_WIDTHS.items()}
         p3["fullchain"] = phase3_fullchain(dev, tmp)
@@ -2300,6 +2425,12 @@ def main() -> int:
         raise AssertionError(f"JAX-package modules were loaded: {jax_package}")
 
     main_dp = p1[MAIN_PATH_BUCKET]
+    # K1 at the widest narrow band and under the wide kernel's plans, and
+    # K2 with the header beside the walk and pack_outputs (phase 1)
+    k1_wide = {p1[f"W{w}"]["W"]: {
+        k: p1[f"W{w}"]["k1_" + k]
+        for k in ("ms", "single_ms", "plain_ms", "bound_ms")}
+        for w in (DP_NARROW_TOP,) + DP_WIDE}
     # K9 at distributed_detect_step's read-major events (phase 7d's input)
     k9_main = p7["k9"]["read_major"]
     dp_runs = [r for m, r in p1.items() if m != "extra"] \
@@ -2315,16 +2446,19 @@ def main() -> int:
          "ms": main_dp["k1_ms"], "single_ms": main_dp["k1_single_ms"],
          "plain_ms": main_dp["k1_plain_ms"],
          "bound_ms": main_dp["k1_bound_ms"],
-         "bound_by": main_dp["k1_bound_by"], "library_ms": None},
+         "bound_by": main_dp["k1_bound_by"], "library_ms": None,
+         "by_band_width": k1_wide},
         {"name": "walk", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/walk.cu",
          "replaces": "nanomod_tpu/resquiggle/banded.py:189",
          "launches": p3["launches"]["walk"],
          "max_abs_err": max(r["k2_max_abs_err"] for r in dp_runs),
-         "ms": main_dp["k2_ms"], "single_ms": main_dp["k2_single_ms"],
-         "plain_ms": main_dp["k2_plain_ms"],
-         "bound_ms": main_dp["k2_bound_ms"],
-         "bound_by": main_dp["k2_bound_by"], "library_ms": None},
+         "ms": main_dp["k2h_ms"], "single_ms": main_dp["k2h_single_ms"],
+         "plain_ms": main_dp["k2h_plain_ms"],
+         "bound_ms": main_dp["k2h_bound_ms"],
+         "bound_by": main_dp["k2h_bound_by"], "library_ms": None,
+         "walk_only_ms": main_dp["k2_ms"],
+         "walk_and_pack_outputs_ms": main_dp["k2_pack_ms"]},
         {"name": "battery", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/battery.cu",
          "replaces": "nanomod_tpu/stats/kernels.py:186",

@@ -89,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float NEGF = -1e9f;
@@ -389,24 +391,96 @@ int launch(const void* read, const void* ref, const void* lens, void* tb,
 //  * After the barrier lane 31 finishes its top lane from the next warp's
 //    published lane 0, and the warp's prefix over the warps below is
 //    max_l max(T'_l, Hnoe_top_l - ge*k_top_l) for l < g: lane l rebuilds
-//    warp l's top-lane Hnoe from the published previous row (the same
-//    adds in the same order, so the same bits) and a 5-step butterfly takes
-//    the max.  Max is exact, so the order of the cross-warp scan does not
-//    matter.  Lane g-1's rebuilt Hnoe is also the left neighbour of the
-//    warp's lane 0 (the E-extend test of the tail).
-//  * The ragged end is the single-warp kernel's: lanes k >= W hold NEG.
-//  * The codes of a chunk of RC rows come in through every thread of the
-//    block; the best cell is reduced in each warp, then across the warps,
-//    with the same rule (largest value, smallest row, smallest k).
+//    warp l's top-lane Hnoe from the published previous row (the same adds
+//    in the same order, so the same bits) and one redux.sync takes the max
+//    of the lanes (on the order-preserving integer image of the floats;
+//    max is exact, so its order does not matter).  Lane g-1's rebuilt Hnoe
+//    is also the left neighbour of the warp's lane 0 (the E-extend test).
 //
-// LP is 8 up to W = 4096 (16 warps), 16 up to 16384 and 32 up to 32768 (32
-// warps); above 16 warps a thread has at most 64 registers and the lane
-// arrays spill to local memory.  Slow, but bit-exact.
+// What bounds it: a read's rows are a chain, and B reads of W lanes fill
+// the card, so the SMs' instruction issue is the limit, far above the
+// bytes bound (the traceback written once).  The design spends few
+// instructions a cell:
+//
+//  * No software pipelining: the row's tb byte and best are finished after
+//    its own barrier, while the block's other warps and the SM's other
+//    blocks fill the barrier's and the shuffles' stalls.  The previous
+//    row's values are not copied a cell, and the registers they took go to
+//    occupancy.  (Finishing each row during the next row's scan, with the
+//    two rows' values in alternating registers, measured no faster: more
+//    registers, fewer blocks an SM; PERF.md.)
+//  * Shared-memory slot addresses are held in registers (smem_reg): the
+//    compiler otherwise rebuilt each from the block's shared window in
+//    every row, some 30 instructions a row.
+//  * The substitution is one predicate and one select a cell: the thread
+//    holds its LP reference codes as one-hot nibbles in registers, slid by
+//    one nibble a row (one shared-memory byte a row, not one a lane), and
+//    the row's read code comes as a one-hot nibble replicated eight times,
+//    so that a match is one AND with an immediate mask.
+//  * The tb byte reuses hu + go of F for the F-extend test, and tests
+//    F >= hd for the source where the reference tests F >= max(hd, 0):
+//    the source reads that test only when H > 0 and E < Hnoe, where
+//    H = Hnoe = max(hd, F) > 0, and then both tests agree.
+//  * Rows i >= len (H = 0, F = NEG) take their own instantiation of the row
+//    body, so a valid row spends nothing on them.
+//  * Lanes past the band (k >= W): only lane W is read below the band (the
+//    k+1 neighbour of lane W-1), so only the thread holding lane W keeps its
+//    lanes from W up at NEG, inside a branch of the one warp that holds it.
+//    Whole threads past W compute lanes that feed only lanes above W.
+//  * The best cell: each thread keeps its best value, the first row where
+//    its largest lane reached it and the smallest such lane (one max over
+//    the thread's lanes a row; the lanes are searched only in a row that
+//    raises the thread's best).  The reduction over the threads takes the
+//    largest value, then the smallest row, then the smallest k: the
+//    reference's cell (see banded_sw_kernel's note).
+//  * The codes of a chunk of RC rows come in through every thread of the
+//    block, one chunk ahead in registers.
+//
+// The launch plan (lanes a thread, threads bound, blocks an SM) comes from
+// W (WIDE_PLANS below; nanomod_tpu_torch/resquiggle/banded_kernel.py
+// wide_plan mirrors it).  Above 16 warps of 16 lanes the lane arrays spill
+// to local memory: slow, but bit-exact.
 
 constexpr int WIDE_MAX_W = 32768;
 
-template <int LP, int MAXT>
-__global__ void __launch_bounds__(MAXT)
+// one code as a one-hot nibble: 0 for a code of 4 or more (never a match)
+__device__ __forceinline__ uint32_t onehot(int c) {
+  return c < 4 ? 1u << c : 0u;
+}
+// a float's order-preserving image as a signed int (no NaN here), and back
+__device__ __forceinline__ int ordered(float x) {
+  const int b = __float_as_int(x);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+__device__ __forceinline__ float unordered(int i) {
+  return __int_as_float(i ^ ((i >> 31) & 0x7fffffff));
+}
+// a shared-memory address held in a register (opaque to the compiler, which
+// would otherwise rebuild it from the block's shared window in every row),
+// and loads and stores through it at an immediate offset
+__device__ __forceinline__ unsigned smem_reg(const void* p) {
+  unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("mov.b32 %0, %0;" : "+r"(a));
+  return a;
+}
+template <int OFF>
+__device__ __forceinline__ float ld_slot(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1+%2];" : "=f"(v) : "r"(a), "n"(OFF));
+  return v;
+}
+template <int OFF>
+__device__ __forceinline__ void st_slot(unsigned a, float v) {
+  asm volatile("st.shared.f32 [%0+%1], %2;" ::"r"(a), "n"(OFF), "f"(v)
+               : "memory");
+}
+// the slots of a row parity: T', lane 0's H and F, the top lane's H, a warp
+// each (byte offsets in s_slot[parity])
+constexpr int SLOT_T = 0, SLOT_H0 = 128, SLOT_F0 = 256, SLOT_HT = 384;
+constexpr int SLOT_PARITY = 512;
+
+template <int LP, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB)
     banded_sw_wide_kernel(const uint8_t* __restrict__ read,
                           const uint8_t* __restrict__ ref,
                           const int32_t* __restrict__ lens,
@@ -417,11 +491,13 @@ __global__ void __launch_bounds__(MAXT)
                           float match, float mismatch, float go, float ge,
                           int pitch) {
   static_assert(LP >= 2, "the top lane is not the thread's only lane");
-  extern __shared__ uint8_t s_rf[];  // (LP + 1) * blockDim.x ref codes
-  __shared__ uint8_t s_rd[RC];
+  constexpr int NWIN = (LP + 7) / 8;        // words of the nibble window
+  constexpr int NFETCH = (LP + 4) / 4;      // words of a chunk's LP+1 codes
+  extern __shared__ uint8_t s_rf[];  // (LP + 1) * blockDim.x one-hot codes
+  __shared__ uint32_t s_rd[RC];      // a read code's nibble, eight times
   // row-parity slots, one a warp: T' (this row), lane 0's H and F and the
-  // top lane's H (the previous row)
-  __shared__ float s_t[2][32], s_h0[2][32], s_f0[2][32], s_ht[2][32];
+  // top lane's H (the previous row): s_slot[parity][SLOT_* / 128][warp]
+  __shared__ __align__(16) float s_slot[2][4][32];
   __shared__ float s_bv[32];
   __shared__ int s_br[32], s_bk[32];
 
@@ -434,14 +510,15 @@ __global__ void __launch_bounds__(MAXT)
   const int rw = m + w;
   const uint8_t* rd = read + (size_t)b * m;
   const uint8_t* rf = ref + (size_t)b * rw;
-  uint8_t* tbb = tb + (size_t)b * m * pitch;
+  uint8_t* trow = tb + (size_t)b * m * pitch + tid * LP;  // row 0
   const int len = lens[b];
   const int k0 = tid * LP;
   const bool live = k0 < w;
   const bool edge = k0 + LP >= w;
-  bool past[LP];
-#pragma unroll
-  for (int j = 0; j < LP; ++j) past[j] = k0 + j >= w;
+  // the warp of the thread holding lane W, and that thread's first lane
+  // past the band (LP in every other thread)
+  const bool wwarp = g == w / LP / 32;
+  const int past0 = k0 <= w && w < k0 + LP ? w - k0 : LP;
   float match_r, mismatch_r;
   asm("mov.b32 %0, %1;" : "=f"(match_r) : "f"(match));
   asm("mov.b32 %0, %1;" : "=f"(mismatch_r) : "f"(mismatch));
@@ -449,204 +526,214 @@ __global__ void __launch_bounds__(MAXT)
   const int ktop = (lane + 1) * 32 * LP - 1;
   const float gek_top = __fmul_rn(ge, (float)ktop);
 
-  float gek[LP], e_base[LP], h[LP], f[LP], bv[LP];
-  int br[LP];
+  float gek[LP], e_base[LP], h[LP], f[LP];
 #pragma unroll
   for (int j = 0; j < LP; ++j) {
     gek[j] = __fmul_rn(ge, (float)(k0 + j));
     e_base[j] = __fsub_rn(__fadd_rn(gek[j], go), ge);
-    h[j] = past[j] ? NEGF : 0.f;
+    h[j] = k0 + j >= w ? NEGF : 0.f;
     f[j] = NEGF;
-    bv[j] = 0.f;
-    br[j] = 0;
   }
+  // this thread's best: value, first row, lane (threads past W never win)
+  float tv = live ? 0.f : __int_as_float(0x7f800000);
+  int tr = 0, tj = 0;
 
-  uint8_t n_rd = 8;
-  uint8_t n_rf[LP + 1];
+  // the next chunk's codes, a thread's share, as one-hot bytes
+  uint32_t n_rd = 0;
+  uint32_t n_rf[NFETCH];
   auto fetch = [&](int i0) {
-    if (tid < RC) {
-      const int c = i0 + tid < m ? rd[i0 + tid] : 8;
-      n_rd = c < 4 ? c : 8;
-    }
+    if (tid < RC) n_rd = onehot(i0 + tid < m ? rd[i0 + tid] : 8);
+#pragma unroll
+    for (int q = 0; q < NFETCH; ++q) n_rf[q] = 0;
 #pragma unroll
     for (int q = 0; q <= LP; ++q) {
       const int x = i0 + q * nt + tid;
-      const int d = x < rw ? rf[x] : 9;
-      n_rf[q] = d < 4 ? d : 9;
+      n_rf[q >> 2] |= onehot(x < rw ? rf[x] : 9) << (8 * (q & 3));
     }
   };
   auto stage = [&]() {
-    if (tid < RC) s_rd[tid] = n_rd;
+    if (tid < RC) s_rd[tid] = n_rd * 0x11111111u;
 #pragma unroll
-    for (int q = 0; q <= LP; ++q) s_rf[q * nt + tid] = n_rf[q];
+    for (int q = 0; q <= LP; ++q)
+      s_rf[q * nt + tid] = (uint8_t)(n_rf[q >> 2] >> (8 * (q & 3)));
   };
   fetch(0);
   stage();
+  // slot addresses: this warp's, the next warp's, lane l's warp's
+  const unsigned slots = smem_reg(s_slot);
+  const unsigned a_g = slots + 4 * g, a_g1 = a_g + 4, a_l = slots + 4 * lane;
   // the state of row -1 (parity 1)
   if (lane == 0) {
-    s_h0[1][g] = h[0];
-    s_f0[1][g] = f[0];
+    st_slot<SLOT_PARITY + SLOT_H0>(a_g, h[0]);
+    st_slot<SLOT_PARITY + SLOT_F0>(a_g, f[0]);
   }
-  if (lane == 31) s_ht[1][g] = h[LP - 1];
+  if (lane == 31) st_slot<SLOT_PARITY + SLOT_HT>(a_g, h[LP - 1]);
   __syncthreads();
 
-  float p_hne[LP], p_e[LP], p_hd[LP], p_hu[LP];
+  // the reference codes of this thread's lanes in the current row: lane j
+  // in nibble j & 7 of word j >> 3
+  uint32_t win[NWIN];
+
+  // one row; VALID: i < len
+  auto row = [&](int r, int i, auto valid_tag) {
+    constexpr bool VALID = decltype(valid_tag)::value;
+    const unsigned po = (i & 1) * SLOT_PARITY, qo = SLOT_PARITY - po;
+    const uint32_t rcm = s_rd[r];
+
+    float hu[LP], fu[LP];
 #pragma unroll
-  for (int j = 0; j < LP; ++j) {
-    p_hne[j] = 0.f;
-    p_e[j] = 0.f;
-    p_hd[j] = 0.f;
-    p_hu[j] = 0.f;
-  }
-  float p_left = NEGF;  // the previous row's Hnoe[k0 - 1] of lane 0
-  auto tail = [&](int ip) {
-    float hn_left = __shfl_up_sync(FULL, p_hne[LP - 1], 1);
-    if (lane == 0) hn_left = p_left;
+    for (int j = 0; j + 1 < LP; ++j) {
+      hu[j] = h[j + 1];
+      fu[j] = f[j + 1];
+    }
+    const float hn = __shfl_down_sync(FULL, h[0], 1);
+    const float fn = __shfl_down_sync(FULL, f[0], 1);
+    // lane 31's top lane is finished after the barrier
+    hu[LP - 1] = edge ? NEGF : hn;
+    fu[LP - 1] = edge ? NEGF : fn;
+
+    float hg[LP], fc[LP], hd[LP], hne[LP], pre[LP];
+#pragma unroll
+    for (int j = 0; j < LP; ++j) {
+      const bool hit = (win[j >> 3] & rcm & (0xfu << (4 * (j & 7)))) != 0u;
+      const float sub = hit ? match_r : mismatch_r;
+      hg[j] = __fadd_rn(hu[j], go);
+      fc[j] = fmaxf(hg[j], __fadd_rn(fu[j], ge));
+      hd[j] = __fadd_rn(h[j], sub);
+      hne[j] = fmaxf(fmaxf(hd[j], fc[j]), 0.f);
+      const float a = __fsub_rn(hne[j], gek[j]);
+      pre[j] = j ? fmaxf(pre[j - 1], a) : a;
+    }
+    // the next row's window: shift in the code of lane LP
+    {
+      const uint32_t nib = s_rf[r + k0 + LP];
+#pragma unroll
+      for (int u = 0; u + 1 < NWIN; ++u)
+        win[u] = __funnelshift_r(win[u], win[u + 1], 4);
+      if constexpr (LP >= 8)
+        win[NWIN - 1] = __funnelshift_r(win[NWIN - 1], nib, 4);
+      else
+        win[0] = (win[0] >> 4) | (nib << (4 * (LP - 1)));
+    }
+    // the warp scan without the top lane
+    float incl = lane == 31 ? pre[LP - 2] : pre[LP - 1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1)
+      incl = fmaxf(incl, __shfl_up_sync(FULL, incl, o));
+    float excl = __shfl_up_sync(FULL, incl, 1);
+    if (lane == 0) excl = NEGF;
+    if (lane == 31) st_slot<SLOT_T>(a_g + po, incl);
+    __syncthreads();
+
+    if (lane == 31 && !edge) {  // the next warp's lane 0, previous row
+      hu[LP - 1] = ld_slot<SLOT_H0>(a_g1 + qo);
+      fu[LP - 1] = ld_slot<SLOT_F0>(a_g1 + qo);
+      hg[LP - 1] = __fadd_rn(hu[LP - 1], go);
+      fc[LP - 1] = fmaxf(hg[LP - 1], __fadd_rn(fu[LP - 1], ge));
+      hne[LP - 1] = fmaxf(fmaxf(hd[LP - 1], fc[LP - 1]), 0.f);
+    }
+    // the prefix over the warps below: lane l rebuilds warp l's top lane
+    float hx = NEGF;
+    int ax = ordered(NEGF);
+    if (lane < g) {
+      const float sub = s_rf[r + ktop] & rcm ? match_r : mismatch_r;
+      const unsigned aq = a_l + qo;
+      const float hd_x = __fadd_rn(ld_slot<SLOT_HT>(aq), sub);
+      const float fc_x = fmaxf(__fadd_rn(ld_slot<SLOT_H0 + 4>(aq), go),
+                               __fadd_rn(ld_slot<SLOT_F0 + 4>(aq), ge));
+      hx = fmaxf(fmaxf(hd_x, fc_x), 0.f);
+      ax = ordered(fmaxf(ld_slot<SLOT_T>(a_l + po),
+                         __fsub_rn(hx, gek_top)));
+    }
+    excl = fmaxf(excl, unordered(__reduce_max_sync(FULL, ax)));
+    const float left = __shfl_sync(FULL, hx, g > 0 ? g - 1 : 0);
+    float hn_left = __shfl_up_sync(FULL, hne[LP - 1], 1);  // Hnoe[k0-1]
+    if (lane == 0) hn_left = g > 0 ? left : NEGF;
+
     uint32_t wd[(LP + 3) / 4] = {};
 #pragma unroll
     for (int j = 0; j < LP; ++j) {
-      const float h_cur = h[j];
-      const float f_cur = f[j];
-      const float e_cur = p_e[j];
-      const int s3 = f_cur >= fmaxf(p_hd[j], 0.f) ? 3 : 1;
-      const int s2 = e_cur >= p_hne[j] ? 2 : s3;
-      const int src = h_cur <= 0.f ? 0 : s2;
-      const float hp = j ? p_hne[j - 1] : hn_left;
-      const int e_ext = e_cur > __fadd_rn(__fadd_rn(hp, go), 1e-4f);
-      const int f_ext = f_cur > __fadd_rn(__fadd_rn(p_hu[j], go), 1e-4f);
-      wd[j >> 2] |= (uint32_t)(src | (e_ext << 2) | (f_ext << 3))
-                    << (8 * (j & 3));
-      if (h_cur > bv[j]) {
-        bv[j] = h_cur;
-        br[j] = ip;
+      const float cm = j ? fmaxf(excl, pre[j - 1]) : excl;
+      const float e_cur = __fadd_rn(e_base[j], cm);
+      const float h_cur = VALID ? fmaxf(hne[j], e_cur) : 0.f;
+      const float f_cur = VALID ? fc[j] : NEGF;
+      const float hp = j ? hne[j - 1] : hn_left;
+      // selects, not branches (see banded_sw_kernel's note)
+      const uint32_t s3 = f_cur >= hd[j] ? 3u : 1u;
+      const uint32_t s2 = e_cur >= hne[j] ? 2u : s3;
+      const uint32_t src = h_cur <= 0.f ? 0u : s2;
+      const uint32_t e_ext =
+          e_cur > __fadd_rn(__fadd_rn(hp, go), 1e-4f) ? 4u : 0u;
+      const uint32_t f_ext = f_cur > __fadd_rn(hg[j], 1e-4f) ? 8u : 0u;
+      wd[j >> 2] |= (src | e_ext | f_ext) << (8 * (j & 3));
+      h[j] = h_cur;
+      f[j] = f_cur;
+    }
+    if (wwarp) {  // lane W reads NEG at k+1 below it
+#pragma unroll
+      for (int j = 0; j < LP; ++j) {
+        if (j >= past0) {
+          h[j] = NEGF;
+          f[j] = NEGF;
+        }
       }
     }
-    if (live && ip >= 0) store_row<LP>(tbb + (size_t)ip * pitch + k0, wd);
+    if constexpr (VALID) {  // rows past len hold H = 0 and raise nothing
+      float mx[LP];
+#pragma unroll
+      for (int j = 0; j < LP; ++j) mx[j] = h[j];
+#pragma unroll
+      for (int s = 1; s < LP; s <<= 1)
+#pragma unroll
+        for (int j = 0; j + s < LP; j += 2 * s) mx[j] = fmaxf(mx[j], mx[j + s]);
+      if (mx[0] > tv) {  // a row that raises this thread's best
+        tv = mx[0];
+        tr = i;
+        int kj = 0;
+#pragma unroll
+        for (int j = LP - 1; j >= 0; --j)
+          if (h[j] == tv) kj = j;
+        tj = kj;
+      }
+    }
+    if (live) store_row<LP>(trow, wd);
+    trow += pitch;
+    if (lane == 0) {
+      st_slot<SLOT_H0>(a_g + po, h[0]);
+      st_slot<SLOT_F0>(a_g + po, f[0]);
+    }
+    if (lane == 31) st_slot<SLOT_HT>(a_g + po, h[LP - 1]);
   };
 
   for (int i0 = 0; i0 < m; i0 += RC) {
     const bool more = i0 + RC < m;
     if (more) fetch(i0 + RC);
     const int rows = min(RC, m - i0);
-    for (int r = 0; r < rows; ++r) {
-      const int i = i0 + r;
-      const int p = i & 1, q = p ^ 1;
-      const bool valid = i < len;
-      const int rc = s_rd[r];
-      const uint8_t* rr = &s_rf[r + k0];
-
-      float hu[LP], fu[LP];
+    const int below = min(max(len - i0, 0), rows);  // rows i < len
 #pragma unroll
-      for (int j = 0; j + 1 < LP; ++j) {
-        hu[j] = h[j + 1];
-        fu[j] = f[j + 1];
-      }
-      const float hn = __shfl_down_sync(FULL, h[0], 1);
-      const float fn = __shfl_down_sync(FULL, f[0], 1);
-      // lane 31's top lane is finished after the barrier
-      hu[LP - 1] = edge ? NEGF : hn;
-      fu[LP - 1] = edge ? NEGF : fn;
-
-      float fc[LP], hd[LP], hne[LP], pre[LP];
+    for (int u = 0; u < NWIN; ++u) win[u] = 0;
 #pragma unroll
-      for (int j = 0; j < LP; ++j) {
-        const float sub = rr[j] == rc ? match_r : mismatch_r;
-        fc[j] = fmaxf(__fadd_rn(hu[j], go), __fadd_rn(fu[j], ge));
-        hd[j] = __fadd_rn(h[j], sub);
-        hne[j] = fmaxf(fmaxf(hd[j], fc[j]), 0.f);
-        const float a = __fsub_rn(hne[j], gek[j]);
-        pre[j] = j ? fmaxf(pre[j - 1], a) : a;
-      }
-      tail(i - 1);
-      // the warp scan without the top lane
-      float incl = lane == 31 ? pre[LP - 2] : pre[LP - 1];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1)
-        incl = fmaxf(incl, __shfl_up_sync(FULL, incl, o));
-      float excl = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) excl = NEGF;
-      if (lane == 31) s_t[p][g] = incl;
-      __syncthreads();
-
-      if (lane == 31 && !edge) {  // the next warp's lane 0, previous row
-        hu[LP - 1] = s_h0[q][g + 1];
-        fu[LP - 1] = s_f0[q][g + 1];
-        fc[LP - 1] = fmaxf(__fadd_rn(hu[LP - 1], go),
-                           __fadd_rn(fu[LP - 1], ge));
-        hne[LP - 1] = fmaxf(fmaxf(hd[LP - 1], fc[LP - 1]), 0.f);
-      }
-      // the prefix over the warps below: lane l rebuilds warp l's top lane
-      float ax = NEGF, hx = NEGF;
-      if (lane < g) {
-        const float sub = s_rf[r + ktop] == rc ? match_r : mismatch_r;
-        const float hd_x = __fadd_rn(s_ht[q][lane], sub);
-        const float fc_x = fmaxf(__fadd_rn(s_h0[q][lane + 1], go),
-                                 __fadd_rn(s_f0[q][lane + 1], ge));
-        hx = fmaxf(fmaxf(hd_x, fc_x), 0.f);
-        ax = fmaxf(s_t[p][lane], __fsub_rn(hx, gek_top));
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        ax = fmaxf(ax, __shfl_xor_sync(FULL, ax, o));
-      const float left = __shfl_sync(FULL, hx, g > 0 ? g - 1 : 0);
-      excl = fmaxf(excl, ax);
-
-#pragma unroll
-      for (int j = 0; j < LP; ++j) {
-        const float cm = j ? fmaxf(excl, pre[j - 1]) : excl;
-        const float e_cur = __fadd_rn(e_base[j], cm);
-        float h_cur = fmaxf(hne[j], e_cur);
-        float f_cur = fc[j];
-        if (!valid) {
-          h_cur = 0.f;
-          f_cur = NEGF;
-        }
-        if (past[j]) {
-          h_cur = NEGF;
-          f_cur = NEGF;
-        }
-        h[j] = h_cur;
-        f[j] = f_cur;
-        p_hne[j] = hne[j];
-        p_e[j] = e_cur;
-        p_hd[j] = hd[j];
-        p_hu[j] = hu[j];
-      }
-      p_left = g > 0 ? left : NEGF;
-      if (lane == 0) {
-        s_h0[p][g] = h[0];
-        s_f0[p][g] = f[0];
-      }
-      if (lane == 31) s_ht[p][g] = h[LP - 1];
-    }
+    for (int j = 0; j < LP; ++j)
+      win[j >> 3] |= (uint32_t)s_rf[k0 + j] << (4 * (j & 7));
+    for (int r = 0; r < below; ++r) row(r, i0 + r, std::true_type{});
+    for (int r = below; r < rows; ++r) row(r, i0 + r, std::false_type{});
     __syncthreads();  // every thread is done with this chunk's codes
     if (more) stage();
     __syncthreads();
   }
-  tail(m - 1);
 
-  float v = -1.f;
-  int row = 0x7fffffff, kk = 0x7fffffff;
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < LP; ++j) {
-      if (past[j]) continue;
-      if (bv[j] > v || (bv[j] == v && br[j] < row)) {
-        v = bv[j];
-        row = br[j];
-        kk = k0 + j;
-      }
-    }
-  }
+  float v = live ? tv : -1.f;
+  int row_b = live ? tr : 0x7fffffff;
+  int kk = live ? k0 + tj : 0x7fffffff;
   auto reduce = [&]() {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       const float v2 = __shfl_down_sync(FULL, v, o);
-      const int r2 = __shfl_down_sync(FULL, row, o);
+      const int r2 = __shfl_down_sync(FULL, row_b, o);
       const int k2 = __shfl_down_sync(FULL, kk, o);
-      if (v2 > v || (v2 == v && (r2 < row || (r2 == row && k2 < kk)))) {
+      if (v2 > v || (v2 == v && (r2 < row_b || (r2 == row_b && k2 < kk)))) {
         v = v2;
-        row = r2;
+        row_b = r2;
         kk = k2;
       }
     }
@@ -654,34 +741,72 @@ __global__ void __launch_bounds__(MAXT)
   reduce();
   if (lane == 0) {
     s_bv[g] = v;
-    s_br[g] = row;
+    s_br[g] = row_b;
     s_bk[g] = kk;
   }
   __syncthreads();
   if (g == 0) {
     v = lane < nw ? s_bv[lane] : -1.f;
-    row = lane < nw ? s_br[lane] : 0x7fffffff;
+    row_b = lane < nw ? s_br[lane] : 0x7fffffff;
     kk = lane < nw ? s_bk[lane] : 0x7fffffff;
     reduce();
     if (lane == 0) {
       best_out[b] = v;
-      bi_out[b] = row;
+      bi_out[b] = row_b;
       bk_out[b] = kk;
     }
   }
 }
 
-template <int LP, int MAXT>
+// Launch plans of the wide kernel: the first plan whose max_w is >= W.
+// A block holds ceil(W / (32 lp)) warps; maxt bounds its threads and minb
+// asks the compiler for registers enough to keep minb blocks an SM.  The
+// fastest plan of kernels/k1_plans.py at B 256, M 1024 (the main path's
+// bucket) at each width it timed (PERF.md, K1's row).
+// nanomod_tpu_torch/resquiggle/banded_kernel.py WIDE_PLANS is the same
+// table (tests/test_torch_wideplan.py holds the two equal).
+struct WidePlan {
+  int max_w, lp, maxt, minb;
+};
+constexpr WidePlan WIDE_PLANS[] = {
+    {1280, 4, 512, 1},
+    {2048, 8, 256, 2},
+    {8192, 16, 512, 1},
+    {16384, 16, 1024, 1},
+    {32768, 32, 1024, 1},
+};
+
+template <int LP, int MAXT, int MINB>
 int launch_wide(const void* read, const void* ref, const void* lens,
                 void* tb, void* best, void* bi, void* bk, int bsz, int m,
                 int w, int pitch, float match, float mismatch, float go,
                 float ge, cudaStream_t stream) {
   const int nt = 32 * ((w + 32 * LP - 1) / (32 * LP));
-  banded_sw_wide_kernel<LP, MAXT><<<bsz, nt, (LP + 1) * nt, stream>>>(
+  if (nt > MAXT) return (int)cudaErrorInvalidConfiguration;
+  banded_sw_wide_kernel<LP, MAXT, MINB><<<bsz, nt, (LP + 1) * nt, stream>>>(
       (const uint8_t*)read, (const uint8_t*)ref, (const int32_t*)lens,
       (uint8_t*)tb, (float*)best, (int32_t*)bi, (int32_t*)bk, m, w, match,
       mismatch, go, ge, pitch);
   return (int)cudaGetLastError();
+}
+
+// the plan for w: WIDE_PLANS' first entry whose max_w is >= w
+template <int I>
+int launch_planned(const void* read, const void* ref, const void* lens,
+                   void* tb, void* best, void* bi, void* bk, int bsz, int m,
+                   int w, int pitch, float match, float mismatch, float go,
+                   float ge, cudaStream_t stream) {
+  constexpr WidePlan P = WIDE_PLANS[I];
+  constexpr int N = sizeof(WIDE_PLANS) / sizeof(WIDE_PLANS[0]);
+  if constexpr (I + 1 < N) {
+    if (w > P.max_w)
+      return launch_planned<I + 1>(read, ref, lens, tb, best, bi, bk, bsz,
+                                   m, w, pitch, match, mismatch, go, ge,
+                                   stream);
+  }
+  return launch_wide<P.lp, P.maxt, P.minb>(read, ref, lens, tb, best, bi, bk,
+                                           bsz, m, w, pitch, match, mismatch,
+                                           go, ge, stream);
 }
 
 }  // namespace
@@ -697,14 +822,8 @@ extern "C" int nm_banded_sw(const void* read, const void* ref,
   cudaStream_t st = (cudaStream_t)stream;
   if (w > 1024) {
     if (w > WIDE_MAX_W) return (int)cudaErrorInvalidValue;
-#define NM_WIDE(LP, MAXT)                                                  \
-  return launch_wide<LP, MAXT>(read, ref, lens, tb, best, bi, bk, bsz, m, \
-                               w, pitch, match, mismatch, go, ge, st)
-    if (w <= 4096) NM_WIDE(8, 512);
-    if (w <= 8192) NM_WIDE(16, 512);
-    if (w <= 16384) NM_WIDE(16, 1024);
-    NM_WIDE(32, 1024);
-#undef NM_WIDE
+    return launch_planned<0>(read, ref, lens, tb, best, bi, bk, bsz, m, w,
+                             pitch, match, mismatch, go, ge, st);
   }
   const int l = (w + 31) / 32;  // band lanes a thread must hold
 #define NM_LAUNCH(LP)                                                     \

@@ -48,6 +48,13 @@
 //    addresses stay in registers (see opaque_smem).
 //  * A pitch above 1024 bytes (W > 1024) takes walk_wide_kernel, which
 //    stages a window of columns around the walk instead of whole rows.
+//  * With the DP's best scores given, each output row starts with the DP
+//    batch's 12-byte header and the codes follow at byte 12: the layout of
+//    pack_outputs (nanomod_tpu/resquiggle/banded.py:151), which the host
+//    fetches in one copy.  The header is round-half-to-even(best), best_i
+//    and best_k as little-endian int32, one byte a lane; it replaces
+//    pack_outputs' six PyTorch operations (a launch each) on the card.  The
+//    codes are written a byte at a time, so their offset costs nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,6 +111,14 @@ __device__ __forceinline__ unsigned lds_u8(unsigned a) {
 __device__ __forceinline__ void sts_u8(unsigned a, unsigned v) {
   asm volatile("st.shared.u8 [%0], %1;" ::"r"(a), "r"(v) : "memory");
 }
+// the DP batch's 12-byte row header (see the note above), lanes 0-11
+__device__ __forceinline__ void put_header(uint8_t* row, const float* best,
+                                           int b, int bi, int bk, int lane) {
+  if (lane < 12) {
+    const int v = lane < 4 ? __float2int_rn(best[b]) : (lane < 8 ? bi : bk);
+    row[lane] = (uint8_t)(v >> (8 * (lane & 3)));
+  }
+}
 __device__ __forceinline__ void load_tile(uint8_t* dst, const uint8_t* t,
                                           int lo, int hi, int p, int lane) {
   const int n16 = lo >= 0 && hi > lo ? (hi - lo) * p / 16 : 0;
@@ -118,7 +133,8 @@ __global__ void __launch_bounds__(32)
     walk_kernel(const uint8_t* __restrict__ tb,
                 const int32_t* __restrict__ best_i,
                 const int32_t* __restrict__ best_k,
-                uint8_t* __restrict__ out, int m, int w, int p) {
+                const float* __restrict__ best, uint8_t* __restrict__ out,
+                int m, int w, int p, int hdr) {
   // GUARD bytes below the two tiles: the look-ahead loads reach p <= 1024
   // bytes below the current tile
   __shared__ __align__(16) uint8_t smem[GUARD + 2 * TILE_BYTES];
@@ -133,12 +149,13 @@ __global__ void __launch_bounds__(32)
   const int steps = 2 * m + w;
   const int nbytes = steps / PER;
   const uint8_t* t = tb + (size_t)b * m * p;
-  uint8_t* o = out + (size_t)b * nbytes;
+  uint8_t* o = out + (size_t)b * (hdr + nbytes) + hdr;
   const unsigned cb = opaque_smem(cbuf);
   const unsigned tb0 = opaque_smem(tile_at(0));
 
   int i = best_i[b];
   int k = best_k[b];
+  if (hdr) put_header(o - hdr, best, b, i, k, lane);
   int st = 0;
   bool done = false;
   uint32_t cur = 0;
@@ -268,7 +285,9 @@ __global__ void __launch_bounds__(32)
     walk_wide_kernel(const uint8_t* __restrict__ tb,
                      const int32_t* __restrict__ best_i,
                      const int32_t* __restrict__ best_k,
-                     uint8_t* __restrict__ out, int m, int w, int p) {
+                     const float* __restrict__ best,
+                     uint8_t* __restrict__ out, int m, int w, int p,
+                     int hdr) {
   __shared__ __align__(16) uint8_t win[WIN_ROWS * WIN_COLS];
   __shared__ uint8_t cbuf[CODE_BYTES];
   constexpr int PER = PACKED ? 4 : 1;
@@ -279,11 +298,12 @@ __global__ void __launch_bounds__(32)
   const int steps = 2 * m + w;
   const int nbytes = steps / PER;
   const uint8_t* t = tb + (size_t)b * m * p;
-  uint8_t* o = out + (size_t)b * nbytes;
+  uint8_t* o = out + (size_t)b * (hdr + nbytes) + hdr;
   const unsigned cb = opaque_smem(cbuf);
 
   int i = best_i[b];
   int k = best_k[b];
+  if (hdr) put_header(o - hdr, best, b, i, k, lane);
   int st = 0;
   bool done = false;
   uint32_t cur = 0;
@@ -365,30 +385,29 @@ __global__ void __launch_bounds__(32)
 
 // w in [1, 32768]; pitch: tb's row stride, a multiple of 16 in [w,
 // 32768]; packed != 0: four codes a byte, 2m + w a multiple of 4 (the
-// wrapper checks all three).  A pitch above GUARD walks in windows.
+// wrapper checks all three).  best: null, or the DP's [B] best scores,
+// and then each row of out is the 12-byte header and the codes.  A pitch
+// above GUARD walks in windows.
 extern "C" int nm_walk(const void* tb, const void* bi, const void* bk,
-                       void* codes, int bsz, int m, int w, int pitch,
-                       int packed, void* stream) {
+                       const void* best, void* out, int bsz, int m, int w,
+                       int pitch, int packed, void* stream) {
   if (bsz <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  const int hdr = best ? 12 : 0;
+#define NM_WALK(KERNEL, PACKED)                                            \
+  KERNEL<PACKED><<<bsz, 32, 0, st>>>(                                      \
+      (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,          \
+      (const float*)best, (uint8_t*)out, m, w, pitch, hdr)
   if (pitch > GUARD) {
     if (packed)
-      walk_wide_kernel<true><<<bsz, 32, 0, st>>>(
-          (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,
-          (uint8_t*)codes, m, w, pitch);
+      NM_WALK(walk_wide_kernel, true);
     else
-      walk_wide_kernel<false><<<bsz, 32, 0, st>>>(
-          (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,
-          (uint8_t*)codes, m, w, pitch);
-    return (int)cudaGetLastError();
+      NM_WALK(walk_wide_kernel, false);
+  } else if (packed) {
+    NM_WALK(walk_kernel, true);
+  } else {
+    NM_WALK(walk_kernel, false);
   }
-  if (packed)
-    walk_kernel<true><<<bsz, 32, 0, st>>>(
-        (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,
-        (uint8_t*)codes, m, w, pitch);
-  else
-    walk_kernel<false><<<bsz, 32, 0, st>>>(
-        (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,
-        (uint8_t*)codes, m, w, pitch);
+#undef NM_WALK
   return (int)cudaGetLastError();
 }

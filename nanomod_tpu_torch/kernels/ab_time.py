@@ -10,6 +10,11 @@ seeded inputs in both, at the main path's shapes: K1 ``banded_sw`` and K2
 ``walk`` at B 256, M 1024, W 128 (reads are their reference window with 5 %
 substitutions; the walk's time is that of the packed codes, so a checkout
 whose walk writes unpacked codes is timed with ``pack_codes2`` after it);
+``walk_header``, the DP batch's rows as the host fetches them (K2 with the
+12-byte header where K2 writes it, else the walk and ``pack_outputs``);
+K1's wide kernel at B 256, M 1024, W 1025, 2048 and 4096 and at B 64,
+M 4096, W 2048 (``banded_sw_w*``, ``banded_sw_b64_m4096_w2048``); the
+walk at W 130 (unpacked codes) and 2048 (windows of columns);
 K3 ``battery`` on a 16,384 x 128 int16 tile, counts 30..100,
 ``battery_f32`` on the same shape in f32 (rank rows only) and
 ``battery_deep`` on a 512 x 1,024 int16 tile at 645 + 645; K6
@@ -45,24 +50,39 @@ import sys
 import numpy as np
 
 B, M, W = 256, 1024, 128
+# K1's wide kernel (a block of warps a read): (name, B, M, W); and the walk
+# at the other band widths of the main-path bucket (unpacked codes at 130,
+# the windowed walk at 2048)
+K1_WIDE = (("banded_sw_w1025", 256, 1024, 1025),
+           ("banded_sw_w2048", 256, 1024, 2048),
+           ("banded_sw_w4096", 256, 1024, 4096),
+           ("banded_sw_b64_m4096_w2048", 64, 4096, 2048))
+WALK_WIDTHS = (("walk_w130", 130), ("walk_w2048", 2048))
 K3_P, K3_CAP = 16384, 128
 K3_DEEP_P, K3_DEEP_CAP = 512, 1024
 K6_P, K6_CAP = 976, 512
 K6_KW = dict(cov=200, repeats=100, quantile_idx=25, seed=0)
 K6_LEVELS = 8         # distinct values a group and row
 K6_CAPPED = 0.96      # share of capped rows
-KERNELS = ("banded_sw", "walk", "battery", "battery_f32", "battery_deep",
-           "capped_ks", "stencil", "accumulate", "accumulate_read_major")
+KERNELS = (("banded_sw",) + tuple(k[0] for k in K1_WIDE)
+           + ("walk", "walk_header") + tuple(k[0] for k in WALK_WIDTHS)
+           + ("battery", "battery_f32", "battery_deep", "capped_ks",
+              "stencil", "accumulate", "accumulate_read_major"))
 K7_P, K7_SHARDS, K7_K, K7_COV = 1 << 20, 4, 2, 200
 K9_G, K9_EVENTS, K9_READ_LEN = 4_641_652, 1 << 22, 1024
 
 
+def _dp_inputs(rng, b, m, w):
+    ref = rng.integers(0, 4, (b, m + w)).astype(np.uint8)
+    read = ref[:, w // 2: w // 2 + m].copy()
+    sub = rng.random((b, m)) < 0.05
+    read[sub] = rng.integers(0, 4, int(sub.sum()))
+    return [read, ref, np.full(b, m, np.int32)]
+
+
 def _inputs():
     rng = np.random.default_rng(0)
-    ref = rng.integers(0, 4, (B, M + W)).astype(np.uint8)
-    read = ref[:, W // 2: W // 2 + M].copy()
-    sub = rng.random((B, M)) < 0.05
-    read[sub] = rng.integers(0, 4, int(sub.sum()))
+    read, ref, _ = _dp_inputs(rng, B, M, W)
     k3 = [(rng.integers(-40, 41, (K3_P, K3_CAP)) * 25).astype(np.int16),
           rng.integers(30, 101, K3_P).astype(np.int32),
           (rng.integers(-40, 41, (K3_P, K3_CAP)) * 25).astype(np.int16),
@@ -98,8 +118,10 @@ def _inputs():
                                 axis=1)).astype(np.int32),
              rng.normal(0, 1, (reads, K9_READ_LEN)).astype(np.float32),
              rng.random((reads, K9_READ_LEN)) >= 0.1]
+    wide = [_dp_inputs(rng, b, m, w) for _, b, m, w in K1_WIDE]
+    walks = [_dp_inputs(rng, B, M, w) for _, w in WALK_WIDTHS]
     return ([read, ref, np.full(B, M, np.int32)], k3, k3_f32, k3_deep, k6,
-            k7, k9, k9_rm)
+            k7, k9, k9_rm, wide, walks)
 
 
 def _time_ms(torch, fn, n):
@@ -133,8 +155,12 @@ def worker(root):
     from nanomod_tpu_torch.resquiggle.banded_kernel import banded_sw_cuda
     from nanomod_tpu_torch.stats import kernels
     dev = torch.device("cuda", 0)
+    dp, k3, k3_f32, k3_deep, k6, k7, k9, k9_rm, wide, walks = _inputs()
     dp, k3, k3_f32, k3_deep, k6, k7, k9, k9_rm = (
-        [torch.from_numpy(x).to(dev) for x in group] for group in _inputs())
+        [torch.from_numpy(x).to(dev) for x in group]
+        for group in (dp, k3, k3_f32, k3_deep, k6, k7, k9, k9_rm))
+    wide, walks = ([[torch.from_numpy(x).to(dev) for x in group]
+                    for group in groups] for groups in (wide, walks))
     tb, best, bi, bk = banded_sw_cuda(*dp)
     if hasattr(banded, "walk"):
         def walk():
@@ -145,9 +171,16 @@ def worker(root):
     else:
         def walk():
             return banded.pack_codes2(banded.walk_cuda(tb, bi, bk))
+    if hasattr(banded, "walk_outputs"):
+        def walk_header():
+            return banded.walk_outputs(tb, best, bi, bk, packed=True)[0]
+    else:                          # before the header was K2's: the plain
+        def walk_header():         # pack_outputs after the walk
+            return banded.pack_outputs(walk(), best, bi, bk)
     fns = {
         "banded_sw": lambda: banded_sw_cuda(*dp),
         "walk": walk,
+        "walk_header": walk_header,
         "battery": lambda: kernels.battery_rows_cuda(*k3, milli=True),
         "battery_f32": lambda: kernels.battery_rows_cuda(*k3_f32,
                                                          milli=False),
@@ -155,6 +188,11 @@ def worker(root):
                                                           milli=True),
         "capped_ks": lambda: kernels.capped_ks_d_cuda(*k6, **K6_KW),
     }
+    for (name, *_), args in zip(K1_WIDE, wide):
+        fns[name] = lambda args=args: banded_sw_cuda(*args)
+    for (name, _), args in zip(WALK_WIDTHS, walks):
+        out = banded_sw_cuda(*args)
+        fns[name] = lambda out=out: banded.walk(out[0], out[2], out[3])[0]
     try:
         from nanomod_tpu_torch.parallel import mesh, sharded
     except ImportError:            # a checkout from before K7 and K9

@@ -64,8 +64,9 @@ _SIGNATURES = {
     # mismatch, go, ge, stream
     "nm_banded_sw": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                      _f, _f, _f, _f, _vp],
-    # tb, bi, bk, codes, bsz, m, w, tb pitch, packed, stream
-    "nm_walk": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # tb, bi, bk, best (or None: no header), out, bsz, m, w, tb pitch,
+    # packed, stream
+    "nm_walk": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # v1, c1, C1, v2, c2, C2, P, is_i16, milli, out, stream
     "nm_battery": [_vp, _vp, _i, _vp, _vp, _i, _i, _i, _i, _vp, _vp],
     # v1, c1, C1, v2, c2, C2, row_index, P, cov, repeats, q_idx, seed_hi,

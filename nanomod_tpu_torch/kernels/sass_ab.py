@@ -12,6 +12,9 @@ the main path runs (K1 at 4 lanes a thread, W = 128, not ragged; K2 with
 its codes four a byte) it prints ptxas's registers and spills, the SASS
 instruction count, and the opcodes whose counts differ between A and B;
 their two SASS listings and opcode-sequence diff are written to ``--out``.
+For every instantiation of K1's wide kernel (W > 1024) in A and in B it
+prints ptxas's registers and spills and the SASS instructions of the row
+loop (``row_loop``: a row's, per thread, and a cell's).
 
 Then both libraries are loaded into one process and their C entry points
 called through ctypes, with no PyTorch wrapper, on the same inputs as
@@ -102,6 +105,75 @@ def _functions(obj, nvcc):
     return funcs
 
 
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                       r"([^;]*);")
+LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+TARGET = re.compile(r"(0x[0-9a-f]+)|`\((\.L_x_\d+)\)")
+
+
+def row_loop(lines):
+    """The row loop of a K1 listing: the innermost backward branch whose
+    range holds a block barrier (BAR).  Returns {"instructions": SASS
+    instructions in the loop, "bars": its BARs} (a row body has one BAR,
+    so instructions / bars is a row's, per thread); None without one."""
+    insts, labels, pending = [], {}, []
+    for line in lines:
+        lab = LABEL.match(line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = SASS_LINE.search(line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        insts.append((addr, m.group(3), m.group(4)))
+    loops = []
+    for addr, op, rest in insts:
+        if not op.startswith("BRA"):
+            continue
+        t = TARGET.search(rest)
+        if not t:
+            continue
+        target = int(t.group(1), 16) if t.group(1) else labels.get(
+            t.group(2), addr)
+        if target < addr:
+            body = [o for a, o, _ in insts if target <= a <= addr]
+            bars = sum(o.startswith("BAR") for o in body)
+            if bars:
+                loops.append((len(body), bars))
+    if not loops:
+        return None
+    n, bars = min(loops)
+    return {"instructions": n, "bars": bars}
+
+
+def wide_stats(obj, nvcc, log, listings=None):
+    """{instantiation: ptxas registers / spills and the row loop's
+    instructions, a row and a cell} of every banded_sw_wide_kernel in the
+    object ``obj`` (its -Xptxas -v log ``log``); with ``listings`` (a path
+    prefix) each instantiation's SASS is written to
+    ``<listings><instantiation>.sass``."""
+    out = {}
+    for name, (_, lines) in _functions(obj, nvcc).items():
+        lanes = re.search(r"banded_sw_wide_kernelILi(\d+)E", name)
+        if not lanes:
+            continue
+        loop = row_loop(lines)
+        if loop:
+            per_row = loop["instructions"] / loop["bars"]
+            loop.update(per_row=per_row, per_cell=per_row / int(lanes[1]))
+        short = re.search(r"banded_sw_wide_kernel(I[^_]*E)", name)
+        key = short[1] if short else name
+        out[key] = {"ptxas": _ptxas(log, name), "row_loop": loop}
+        if listings:
+            with open(f"{listings}{key}.sass", "w") as fh:
+                fh.write("\n".join(lines) + "\n")
+    return out
+
+
 def _ptxas(log, name):
     """ptxas's lines (stack, spills, registers) for the function ``name``
     in a -Xptxas -v log."""
@@ -115,7 +187,8 @@ def _ptxas(log, name):
 
 def compare_sass(roots, out, nvcc, flags):
     libs, objs, logs = _build(roots, out, nvcc, flags)
-    res, funcs = {}, {}
+    res = {f"log_{tag}": logs[tag, "banded_sw.cu"] for tag in "AB"}
+    funcs = {}
     for (tag, src), obj in objs.items():
         funcs[tag, src] = _functions(obj, nvcc)
     for src, key in zip(SOURCES, MAIN):
@@ -146,18 +219,30 @@ def compare_sass(roots, out, nvcc, flags):
     return libs, res
 
 
-def _entry(lib):
-    """The library's K1 and K2 entry points with their argtypes, and
-    whether it is a checkout with row pitches (nm_walk) or without."""
+def _walk_takes_best(root):
+    """Whether the checkout's nm_walk takes the DP's best scores (a fifth
+    pointer: the 12-byte header), from its kernels/build.py signature."""
+    with open(os.path.join(root, "nanomod_tpu_torch", "kernels",
+                           "build.py")) as f:
+        sig = re.search(r'"nm_walk": \[([^\]]*)\]', f.read())
+    return bool(sig) and sig.group(1).count("_vp") == 6
+
+
+def _entry(lib, root):
+    """The library's K1 and K2 entry points with their argtypes, whether
+    it is a checkout with row pitches (nm_walk) or without, and whether
+    its nm_walk takes the best scores."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll = ctypes.CDLL(lib)
     pitched = hasattr(dll, "nm_walk")
+    best = pitched and _walk_takes_best(root)
     dll.nm_banded_sw.argtypes = ([vp] * 7 + [i] * (4 if pitched else 3)
                                  + [f] * 4 + [vp])
     walk = dll.nm_walk if pitched else dll.nm_walk_packed
-    walk.argtypes = [vp] * 4 + [i] * (5 if pitched else 3) + [vp]
+    walk.argtypes = ([vp] * (5 if best else 4) + [i] * (5 if pitched else 3)
+                     + [vp])
     dll.nm_banded_sw.restype = walk.restype = ctypes.c_int
-    return dll, walk, pitched
+    return dll, walk, pitched, best
 
 
 def _time(torch, fn, n, reps=5):
@@ -176,8 +261,8 @@ def _time(torch, fn, n, reps=5):
     return float(np.median(ts))
 
 
-def time_raw(libs, root_b):
-    sys.path.insert(0, root_b)
+def time_raw(libs, roots):
+    sys.path.insert(0, roots[1])
     import torch
     from nanomod_tpu_torch.resquiggle import banded
     from nanomod_tpu_torch.resquiggle.banded_kernel import banded_sw_cuda
@@ -191,8 +276,8 @@ def time_raw(libs, root_b):
     lens = torch.full((B,), M, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     calls, outs, bufs = {}, {}, {}
-    for tag in "AB":
-        dll, walk, pitched = _entry(libs[tag])
+    for tag, root in zip("AB", roots):
+        dll, walk, pitched, takes_best = _entry(libs[tag], root)
         tb = torch.empty((B, M, W), dtype=torch.uint8, device=dev)
         best = torch.empty(B, dtype=torch.float32, device=dev)
         bi = torch.empty(B, dtype=torch.int32, device=dev)
@@ -204,8 +289,9 @@ def time_raw(libs, root_b):
                     tb.data_ptr(), best.data_ptr(), bi.data_ptr(),
                     bk.data_ptr()] + list(dims) + [2.0, -3.0, -5.0, -2.0,
                                                    stream])
-        k2_args = ([tb.data_ptr(), bi.data_ptr(), bk.data_ptr(),
-                    codes.data_ptr()] + list(dims)
+        k2_args = ([tb.data_ptr(), bi.data_ptr(), bk.data_ptr()]
+                   + ([None] if takes_best else []) + [codes.data_ptr()]
+                   + list(dims)
                    + ([1] if pitched else []) + [stream])
 
         def k1(d=dll, a=k1_args):
@@ -266,7 +352,11 @@ def main():
     flags += ["-Xcompiler", "-fPIC"]
     print(_card())
     libs, res = compare_sass(roots, args.out, kbuild._nvcc(), flags)
-    res["timing"] = time_raw(libs, roots[1])
+    res["wide"] = {tag: wide_stats(
+        os.path.join(args.out, f"{tag}_banded_sw.o"), kbuild._nvcc(),
+        res.pop(f"log_{tag}"), os.path.join(args.out, f"{tag}_wide_"))
+        for tag in "AB"}
+    res["timing"] = time_raw(libs, roots)
     print(json.dumps(res))
 
 

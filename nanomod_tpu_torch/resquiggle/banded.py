@@ -11,9 +11,12 @@ device of their tensors:
                     K2 (csrc/walk.cu), which packs the codes itself.  Its
                     codes are four a byte where the step count 2M+W is a
                     multiple of 4, else one a byte (the reference's modes)
+  * ``walk_outputs`` the walk's codes behind the DP batch's 12-byte header
+                    (the rows the host fetches): CPU -> ``pack_outputs`` of
+                    the plain walk; CUDA -> K2, which writes the header
 
 ``pack_tb``, ``pack_outputs`` and ``pack_codes2`` are byte reshuffles in
-plain PyTorch on either device.  The host decoders (``unpack_outputs``,
+plain PyTorch.  The host decoders (``unpack_outputs``,
 ``unpack_codes2``, ``decode_walk``, ``decode_walk_native``,
 ``traceback_batch_native``) are the reference's, loading the shared
 ``traceback`` native library.
@@ -212,9 +215,11 @@ def _pitched(tb):
     return rows, pitch
 
 
-def _walk_cuda(tb, best_i, best_k, packed: bool):
+def _walk_cuda(tb, best_i, best_k, packed: bool, best=None):
     """Kernel K2 (csrc/walk.cu) on CUDA tensors: the walk's codes, four a
-    byte when ``packed``, else one a byte."""
+    byte when ``packed``, else one a byte.  With ``best`` (the DP's [B] f32
+    scores) each row is the DP batch's 12-byte header and then the codes,
+    byte-equal to ``pack_outputs(codes, best, best_i, best_k)``."""
     from nanomod_tpu_torch.resquiggle.banded_kernel import MAX_W
     dev = tb.device
     if dev.type != "cuda":
@@ -233,16 +238,23 @@ def _walk_cuda(tb, best_i, best_k, packed: bool):
     for x in (best_i, best_k):
         if x.device != dev or x.dtype != torch.int32:
             raise ValueError("best_i/best_k must be int32 on tb's device")
+    hdr = 0
+    if best is not None:
+        if best.shape != (bsz,) or best.device != dev or \
+                best.dtype != torch.float32:
+            raise ValueError("best must be [B] float32 on tb's device")
+        best = best.contiguous()
+        hdr = 12
     rows, pitch = _pitched(tb)
     bi = best_i.contiguous()
     bk = best_k.contiguous()
-    codes = torch.empty((bsz, steps // 4 if packed else steps),
-                        dtype=torch.uint8, device=dev)
+    out = torch.empty((bsz, hdr + (steps // 4 if packed else steps)),
+                      dtype=torch.uint8, device=dev)
     kbuild.launch("walk", "nm_walk", dev, rows.data_ptr(), bi.data_ptr(),
-                  bk.data_ptr(), codes.data_ptr(), bsz, m, w, pitch,
-                  int(packed))
+                  bk.data_ptr(), None if best is None else best.data_ptr(),
+                  out.data_ptr(), bsz, m, w, pitch, int(packed))
     kbuild.LAUNCHES["walk"] += 1
-    return codes
+    return out
 
 
 def walk(tb, best_i, best_k, packed=None):
@@ -259,6 +271,24 @@ def walk(tb, best_i, best_k, packed=None):
         return _walk_cuda(tb, best_i, best_k, packed), packed
     codes = walk_device_plain(tb, best_i, best_k)
     return (pack_codes2(codes) if packed else codes), packed
+
+
+def walk_outputs(tb, best, best_i, best_k, packed=None):
+    """The DP batch's outputs as the host fetches them, on the device of
+    ``tb``: [B, 12 + L] uint8 rows, each the 12-byte header of
+    ``pack_outputs`` (round-half-to-even best, best_i, best_k as
+    little-endian int32) and then the walk's L code bytes (as ``walk``:
+    four codes a byte when ``packed``).  Returns (rows, packed).  CPU
+    tensors take ``pack_outputs`` of the plain walk; CUDA tensors one
+    launch of K2, which writes the header itself (raises if it cannot
+    launch)."""
+    bsz, m, w = tb.shape
+    if packed is None:
+        packed = (2 * m + w) % 4 == 0
+    if tb.device.type != "cpu":
+        return _walk_cuda(tb, best_i, best_k, packed, best=best), packed
+    codes, packed = walk(tb, best_i, best_k, packed)
+    return pack_outputs(codes, best, best_i, best_k), packed
 
 
 def pack_codes2(codes):

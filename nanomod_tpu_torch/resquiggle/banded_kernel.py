@@ -6,12 +6,13 @@ banded_sw, array-equal to it.  Unlike the Pallas wrapper, no [B, M, W] f32
 substitution array is built (the kernel scores the u8 codes itself) and B
 need not be a multiple of 8, and W is any width in [1, MAX_W].  Up to
 W = 1024 one warp aligns one read; a wider band runs a block of
-ceil(W / (32 LP)) warps a read (LP = 8, 16 or 32 lanes a thread), which
-exchange the band's boundary through shared memory once a row (see the
-kernel's source note); the kernel picks its launch from W.  The traceback
-rows are written with a pitch of W rounded up to a multiple of 32 bytes
-(``tb_pitch``), and the [B, M, W] view of them is returned; K2 reads that
-pitch.  The plain version is banded.banded_sw_plain.
+ceil(W / (32 LP)) warps a read, which exchange the band's boundary through
+shared memory once a row (see the kernel's source note).  LP, the lanes a
+thread, comes from W through the plan table WIDE_PLANS, which the
+kernel's dispatch holds too (``wide_plan`` gives a band width's launch).
+The traceback rows are written with a pitch of W rounded up to a multiple
+of 32 bytes (``tb_pitch``), and the [B, M, W] view of them is returned; K2
+reads that pitch.  The plain version is banded.banded_sw_plain.
 """
 
 from __future__ import annotations
@@ -21,6 +22,40 @@ import torch
 from nanomod_tpu_torch.kernels import build as kbuild
 
 MAX_W = 32768  # 32 warps of 32 lanes a thread at most
+NARROW_MAX_W = 1024  # one warp a read up to here
+
+# K1's launch plans above NARROW_MAX_W, the same table as csrc/banded_sw.cu
+# WIDE_PLANS: (largest W, lanes a thread, threads bound, blocks an SM
+# asked of the compiler); a band width takes the first plan whose largest
+# W is >= it.
+WIDE_PLANS = (
+    (1280, 4, 512, 1),
+    (2048, 8, 256, 2),
+    (8192, 16, 512, 1),
+    (16384, 16, 1024, 1),
+    (32768, 32, 1024, 1),
+)
+# banded_sw_wide_kernel's static shared memory, bytes: the read codes of a
+# chunk (RC = 32 uint32), the [2][4][32] float row-parity slots, the best
+# cell's three [32] arrays
+WIDE_STATIC_SMEM = 32 * 4 + 2 * 4 * 32 * 4 + 3 * 32 * 4
+SMEM_PER_BLOCK = 232448  # an H100 block's shared memory at most, bytes
+
+
+def wide_plan(w: int) -> dict:
+    """K1's launch for a band width in (NARROW_MAX_W, MAX_W]: lanes a
+    thread, threads (ceil(W / (32 lanes)) warps), the threads bound and
+    blocks an SM of its instantiation, and its shared memory (the chunk's
+    reference codes, (lanes + 1) bytes a thread, and the static slots)."""
+    if not NARROW_MAX_W < w <= MAX_W:
+        raise ValueError(f"band width {w} is not in ({NARROW_MAX_W}, "
+                         f"{MAX_W}]")
+    max_w, lanes, max_threads, min_blocks = next(
+        p for p in WIDE_PLANS if w <= p[0])
+    threads = 32 * -(-w // (32 * lanes))
+    return {"lanes": lanes, "threads": threads, "warps": threads // 32,
+            "max_threads": max_threads, "min_blocks": min_blocks,
+            "smem_bytes": (lanes + 1) * threads + WIDE_STATIC_SMEM}
 
 
 def tb_pitch(w: int) -> int:

@@ -259,7 +259,7 @@ class DPBatch:
     to ``host`` (pinned memory on CUDA) behind ``event``."""
 
     reads: List[PreparedRead]
-    host: torch.Tensor          # [B, 12 + .] uint8 (banded.pack_outputs)
+    host: torch.Tensor          # [B, 12 + .] uint8 (banded.walk_outputs)
     event: Optional[object]     # torch.cuda.Event, None on the CPU
     tail_shape: tuple           # per-read code shape
     lens: np.ndarray
@@ -280,9 +280,15 @@ def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
     w = cfg.band_width
     m = _length_bucket(max(len(r.fwd_seq) for r in reads))
     bsz = max(len(reads), pad_bsz)
-    read_codes = np.full((bsz, m), 4, np.uint8)
-    ref_codes = np.full((bsz, m + w), 5, np.uint8)
-    lens = np.zeros(bsz, np.int32)
+    # the three inputs in one buffer (lengths first, 4-byte aligned), so
+    # that they cross to the card in one copy
+    buf = np.empty(4 * bsz + bsz * m + bsz * (m + w), np.uint8)
+    lens = buf[:4 * bsz].view(np.int32)
+    read_codes = buf[4 * bsz:4 * bsz + bsz * m].reshape(bsz, m)
+    ref_codes = buf[4 * bsz + bsz * m:].reshape(bsz, m + w)
+    lens[:] = 0
+    read_codes[:] = 4
+    ref_codes[:] = 5
     win_starts = np.zeros(bsz, np.int64)
     for i, r in enumerate(reads):
         seq = r.fwd_seq
@@ -296,22 +302,24 @@ def dispatch_dp(reads: List[PreparedRead], fasta: FastaIndex,
         if hi > lo:
             ref_codes[i, lo - ws: hi - ws] = encode(genome[lo:hi]).astype(np.uint8)
 
+    dbuf = to_device(buf, device)
     tb, best, bi, bk = banded.banded_sw(
-        to_device(read_codes, device), to_device(ref_codes, device),
-        to_device(lens, device),
+        dbuf[4 * bsz:4 * bsz + bsz * m].view(bsz, m),
+        dbuf[4 * bsz + bsz * m:].view(bsz, m + w),
+        dbuf[:4 * bsz].view(torch.int32),
         match=cfg.match_score, mismatch=cfg.mismatch_score,
         go=cfg.gap_open, ge=cfg.gap_extend,
     )
-    codes, packed_codes = banded.walk(tb, bi, bk)
-    packed = banded.pack_outputs(codes, best, bi, bk)
+    # K2 writes the rows the host fetches: the 12-byte header, the codes
+    rows, packed_codes = banded.walk_outputs(tb, best, bi, bk)
     event = None
-    host = packed
+    host = rows
     if device.type == "cuda":
-        host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
+        host = torch.empty(rows.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(rows, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(device))
-    return DPBatch(reads, host, event, tuple(codes.shape[1:]), lens,
+    return DPBatch(reads, host, event, (rows.shape[1] - 12,), lens.copy(),
                    win_starts, packed_codes)
 
 

@@ -190,6 +190,75 @@ def test_k2_wide_start_outside_the_matrix(dev):
                        banded.walk_packed_plain(tbm, bi, bk))
 
 
+WIDE_WIDTHS = [1025, 1056, 1536, 2047, 2048, 2049, 3000, 4096, 4097, 8192,
+               16384, 32768]
+
+
+@pytest.mark.parametrize("b", [1, 37, 64])
+@pytest.mark.parametrize("w", WIDE_WIDTHS)
+def test_k1_wide_plans_match_plain(dev, w, b):
+    """K1's wide kernel under each launch plan (lanes a thread by W), on and
+    off the grid of lanes and of warps, at one read, a ragged batch and a
+    batch under the card's SM count: array-equal to the plain version."""
+    rng = np.random.default_rng(w * 100 + b)
+    m = 48 if w > 8192 else 96
+    read, ref, lens = (torch.from_numpy(x).to(dev)
+                       for x in _wide_reads(rng, b, m, w))
+    got = banded.banded_sw(read, ref, lens)
+    want = banded.banded_sw_plain(read, ref, lens)
+    for name, a, c in zip(("tb", "best", "best_i", "best_k"), got, want):
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("w", WIDE_WIDTHS)
+def test_k1_wide_plans_ties_and_mismatch(dev, w):
+    """Ties across rows and lanes (tandem repeats) and no positive cell at
+    all (best 0 at (0, 0)) under each plan."""
+    rng = np.random.default_rng(w + 7)
+    m = 40 if w > 8192 else 80
+    for make in (_ties, _mismatch):
+        read, ref, lens = (torch.from_numpy(x).to(dev)
+                           for x in make(rng, 37, m, w))
+        got = banded.banded_sw(read, ref, lens)
+        want = banded.banded_sw_plain(read, ref, lens)
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+        if make is _mismatch:
+            assert not got[1].any() and not got[2].any() and \
+                not got[3].any()
+
+
+@pytest.mark.parametrize("m,w,packed", [(256, 128, True), (256, 130, False),
+                                        (128, 2048, True),
+                                        (128, 2050, False), (96, 1025, False)])
+def test_k2_writes_the_dp_header(dev, m, w, packed, monkeypatch):
+    """K2 with the DP's best scores writes each row's 12-byte header and
+    then its codes: byte-equal to pack_outputs of the walk, with bests at
+    x.5 (round half to even), in the packed, unpacked and windowed (pitch
+    above 1024) walks; the card's walk_outputs runs no pack_outputs."""
+    rng = np.random.default_rng(m + w)
+    read, ref, lens = (torch.from_numpy(x).to(dev)
+                       for x in _wide_reads(rng, 37, m, w))
+    tbm, best, bi, bk = banded.banded_sw(read, ref, lens)
+    half = rng.choice([0.5, -0.5, 1.5, 2.5, 0.0, -1.5], 37)
+    best = best + torch.from_numpy(half.astype(np.float32)).to(dev)
+    codes, _ = banded.walk(tbm, bi, bk, packed=packed)
+    want = banded.pack_outputs(codes, best, bi, bk)
+    before = kbuild.launch_counts()["walk"]
+
+    def refuse(*a, **kw):
+        raise AssertionError("pack_outputs ran on the card")
+    monkeypatch.setattr(banded, "pack_outputs", refuse)
+    rows, mode = banded.walk_outputs(tbm, best, bi, bk, packed=packed)
+    assert mode is packed
+    assert kbuild.launch_counts()["walk"] == before + 1
+    assert rows.shape == (37, 12 + codes.shape[1])
+    assert torch.equal(rows, want)
+    head = rows[:, :4].cpu().contiguous().numpy().view(np.int32)[:, 0]
+    np.testing.assert_array_equal(
+        head, np.round(best.cpu().numpy()).astype(np.int32))
+
+
 def test_k1_rejects_bad_band(dev):
     """Above 32,768 band lanes (32 warps of 32 a thread) K1 raises; the
     walk too."""

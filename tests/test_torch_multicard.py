@@ -58,10 +58,11 @@ def _elsewhere(cards, fn, *arrays):
     return [g.cpu() for g in listed(got)], listed(want)
 
 
-@pytest.mark.parametrize("w", [128, 2048])
+@pytest.mark.parametrize("w", [128, 2048, 4097])
 def test_k1_k2_on_a_card_that_is_not_current(cards, w):
     """A warp a read (W 128) and a block of warps a read with the windowed
-    walk (W 2048)."""
+    walk (W 2048; W 4097: the wide kernel's 16-lane plan, ragged); K2 also
+    with the DP header."""
     from nanomod_tpu_torch.resquiggle import banded
     rng = np.random.default_rng(1)
     b, m = 37, 256
@@ -71,7 +72,8 @@ def test_k1_k2_on_a_card_that_is_not_current(cards, w):
 
     def k1_k2(rd, rf, ln):
         tb, best, bi, bk = banded.banded_sw(rd, rf, ln)
-        return best, bi, bk, banded.walk(tb, bi, bk, packed=True)[0]
+        return (best, bi, bk, banded.walk(tb, bi, bk, packed=False)[0],
+                banded.walk_outputs(tb, best, bi, bk)[0])
     got, want = _elsewhere(cards, k1_k2, read, ref, lens)
     for g, w_ in zip(got, want):
         assert torch.equal(g, w_)
