@@ -12,14 +12,17 @@ Phase 1  K1 (banded DP) and K2 (the traceback walk, its codes one a byte
          (genome windows with ~5 % substitutions and indels, some reads
          shorter than their bucket, some N codes), W = 128, M = 1024 (the
          bucket of the main path's reads), 2048, 4096, 8192, and W = 130,
-         100, 1024, 1025, 2048 and 4096 at M = 1024 (1024: the narrow K1's
-         widest band, one warp a read; above 1024: K1's wide kernel, a
-         block of warps a read under the launch plan of its width, ragged
-         at 1025, and K2's windowed walk); then a batch rich in ties (tandem repeats
+         100, K1's narrow/wide edge (NARROW_MAX_W, the narrow K1's widest
+         band, one warp a read, and NARROW_MAX_W + 1, the wide kernel's
+         narrowest, a block of warps a read under the launch plan of its
+         width), 1024, 1025, 2048 and 4096 at M = 1024 (above 1024 also
+         K2's windowed walk); then a batch rich in ties (tandem repeats
          whose best score is reached at several cells), an all-mismatch
          batch (best 0 at (0, 0)), a ragged B = 37, W = 32 and W = 1024 at
-         M = 256, and B = 37, M = 256 at W = 1, 4, 31, 33, 100, 130, 1000
-         (off the grids of 32 and 4).  tb, best, best_i, best_k and both
+         M = 256, B = 37, M = 256 at W = 1, 4, 31, 33, 100, 130, 1000
+         (off the grids of 32 and 4), and at M = 256 a batch, a tie batch
+         and an all-mismatch batch at NARROW_MAX_W, + 1, + 2, 1024 and
+         1025.  tb, best, best_i, best_k and both
          walk outputs must be array-equal, and K2's rows with the DP header
          (banded.walk_outputs, bests moved to x.5 and off it) byte-equal to
          pack_outputs of the walk in every mode.  Each kernel's time is printed
@@ -137,10 +140,14 @@ Phase 7  the multi-device and multi-process paths.  (a) K7, the neighbor
          200-200 --mstd 1) byte-equal to phases 3 and 5, K3 (and K6)
          launched in every rank's metrics file; ``cli Annotate`` on fresh
          copies of the raw smoke groups: every corrected FAST5 byte-equal
-         to phase 3's, each rank reporting the merged ok count.  (f) the
-         pooled layout of distributed_detect_step (65,536 x 64 over the 4
-         shards): its reshuffle and K3 timed apart, beside the bytes bound
-         of pooled_rank_components.
+         to phase 3's, each rank reporting the merged ok count.  (f)
+         pooled_rank_components on the pooled layout of
+         distributed_detect_step (65,536 x 64 over the 4 shards), one
+         launch of K3's pooled entry a shard: held to its plain version
+         there and on the pooled hard cases of kernels/hardcases.py (d
+         bit-equal, NaN equal to NaN), timed beside its bound and the
+         plain version; under torch.profiler its only device operation
+         is the pooled kernel (its device time a launch).
 Phase 8  (a) the external aligner: a fake ``minimap2`` (the tests' own, an
          exact-substring aligner writing SAM) at the front of PATH, then
          ``cli Annotate --alignStr minimap2`` with ``--device cuda`` and
@@ -228,11 +235,11 @@ DP_RAGGED_B = 37
 DP_OFF_GRID = (1, 4, 31, 33, 100, 130, 1000)
 DP_OFF_GRID_MAIN = (130, 100)
 # band widths above 1024 (K1: a block of warps a read, ragged at 1025; K2:
-# the windowed walk, both modes at 2048 and 4096) at the main shape, and
-# the narrow K1's widest band (one warp of 32 lanes a thread a read) beside
-# them
+# the windowed walk, both modes at 2048 and 4096) at the main shape; beside
+# them K1 either side of its narrow/wide edge (resquiggle/banded_kernel.py
+# NARROW_MAX_W: the narrow kernel's widest band and the wide kernel's
+# narrowest) and at 1024
 DP_WIDE = (1025, 2048, 4096)
-DP_NARROW_TOP = 1024
 # the bests' fractional parts in phase 1's header checks (round half to
 # even), cycled over a batch
 HALF_BESTS = (0.5, -0.5, 1.5, 2.5, 0.0, -1.5)
@@ -669,6 +676,15 @@ def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
             max_abs_err(torch, pairs))
 
 
+def k1_edge_widths(past=1):
+    """K1's narrow/wide edge: the narrow kernel's widest band
+    (NARROW_MAX_W) and the wide kernel's first ``past`` bands, and 1024
+    (the widest band one warp can hold), in order."""
+    from nanomod_tpu_torch.resquiggle.banded_kernel import NARROW_MAX_W
+    return sorted({NARROW_MAX_W, 1024}
+                  | {NARROW_MAX_W + i for i in range(1, past + 1)})
+
+
 def phase1(torch, dev):
     from nanomod_tpu_torch.resquiggle import banded
     from nanomod_tpu_torch.resquiggle.banded_kernel import banded_sw_cuda
@@ -677,10 +693,11 @@ def phase1(torch, dev):
     def on_card(arrays):
         return [torch.from_numpy(x).to(dev) for x in arrays]
 
-    out = {}
+    out = {"k1_widths": k1_edge_widths() + [
+        w for w in DP_WIDE if w not in k1_edge_widths()]}
     main = [(m, W) for m in DP_BUCKETS] \
         + [(MAIN_PATH_BUCKET, w)
-           for w in DP_OFF_GRID_MAIN + (DP_NARROW_TOP,) + DP_WIDE]
+           for w in DP_OFF_GRID_MAIN + tuple(out["k1_widths"])]
     for m, w in main:
         read, ref, lens = on_card(synth_reads(rng, DP_BATCH, m, w))
         k_out, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
@@ -751,14 +768,24 @@ def phase1(torch, dev):
     for w in DP_OFF_GRID:
         extra[f"W{w}_B{DP_RAGGED_B}"] = (
             synth_reads(rng, DP_RAGGED_B, DP_SMALL_M, w), w)
+    # K1's narrow/wide edge: the last narrow band, the first two wide ones,
+    # 1024 and 1025, each with a batch of ties and an all-mismatch batch
+    for w in sorted(set(k1_edge_widths(2)) | {1024, 1025}):
+        extra[f"edge_W{w}"] = (synth_reads(rng, DP_BATCH, DP_SMALL_M, w), w)
+        extra[f"edge_ties_W{w}"] = (tie_reads(rng, DP_BATCH, DP_SMALL_M, w),
+                                    w)
+        extra[f"edge_all_mismatch_W{w}"] = (
+            mismatch_reads(rng, DP_BATCH, DP_SMALL_M, w), w)
     errs = {}
     for what, (arrays, w) in extra.items():
         read, ref, lens = on_card(arrays)
         k_out, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
                                  lens, what)
         best, bi, bk = (x.cpu().numpy() for x in k_out[1:])
-        if what == "all_mismatch" and (best.any() or bi.any() or bk.any()):
-            raise AssertionError("all-mismatch batch: best must be 0 at (0, 0)")
+        if "all_mismatch" in what and (best.any() or bi.any() or bk.any()):
+            raise AssertionError(f"{what}: best must be 0 at (0, 0)")
+        if "ties" in what and best.min() <= 0:
+            raise AssertionError(f"{what}: every read must score")
         tb = k_out[0]
         errs[what] = {"k1_max_abs_err": e1, "k2_max_abs_err": e2,
                       "W": w, "B": len(best), "M": read.shape[1],
@@ -2082,9 +2109,10 @@ def phase7_main_paths(torch, dev, tmp, groups, reads):
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     step_launches = kbuild.launch_counts()
-    if step_launches["accumulate"] <= 0 or step_launches["battery"] <= 0:
+    if step_launches["accumulate"] <= 0 \
+            or step_launches["battery_pooled"] <= 0:
         raise AssertionError(f"distributed_detect_step did not launch K9 "
-                             f"and K3: {step_launches}")
+                             f"and K3's pooled entry: {step_launches}")
     check_accumulate(torch, step[:3], mesh.accumulate_plain(
         *(torch.from_numpy(x).to(dev) for x in reads), GENOME_LEN),
         "distributed_detect_step")
@@ -2214,33 +2242,67 @@ def phase7_two_processes(tmp, groups, p3):
 def pooled_work(torch, shards):
     """pooled_rank_components' bytes over the shards (z and lab read, n1
     and n2 read, d, two_rank_sum and tie_sum written) and the operations
-    of a sort-and-merge evaluation of every row (k3_work, no moments)."""
-    from nanomod_tpu_torch.stats import kernels
+    of a sort-and-merge evaluation of every row's two groups (as
+    k3_work's, no moments)."""
     nbytes, ops = 0, 0
     for z, lab, n1, n2 in shards:
         nbytes += z.nbytes + lab.nbytes + n1.nbytes + n2.nbytes \
             + 12 * z.shape[0]
-        work = k3_work(torch, *kernels.pooled_groups(z, lab), milli=False)
-        ops += work.get("f32_ops", 0)
+        valid = z < float("inf")
+        c1 = (valid & (lab > 0.5)).sum(dim=1)
+        c2 = (valid & (lab <= 0.5)).sum(dim=1)
+        ops += int((sort_compares(torch, c1) + sort_compares(torch, c2)
+                    + (WALK_KS_OPS + WALK_RANK_OPS) * (c1 + c2)).sum())
     return dict(bytes_moved=nbytes, f32_ops=ops)
 
 
 def phase7_pooled(torch, m2, z, lab, n1, n2):
-    """(f) pooled_rank_components over the mesh's shards: the layout
-    reshuffle (pooled_groups) and K3 (battery_rows_cuda) timed apart, then
-    the whole function, beside its bound."""
+    """(f) pooled_rank_components over the mesh's shards, one launch of
+    K3's pooled entry a shard: timed beside its bound and its plain
+    version, held to the plain version (d bit-equal, NaN equal to NaN)
+    there and on the pooled hard cases (kernels/hardcases.py)."""
+    from nanomod_tpu_torch.kernels import hardcases
     from nanomod_tpu_torch.parallel.mesh import shard_pools_over_positions
     from nanomod_tpu_torch.stats import kernels
+    dev = m2.devices[0]
+
+    def held(args, what):
+        got = kernels.pooled_rank_components_cuda(*args)
+        want = kernels.pooled_rank_components_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0].isnan(), want[0].isnan())
+                and torch.equal(got[0].nan_to_num(), want[0].nan_to_num())
+                and torch.equal(got[1], want[1])
+                and torch.equal(got[2], want[2])):
+            raise AssertionError(f"the pooled kernel differs from plain: "
+                                 f"{what}")
+        if not got[0].numel():
+            return 0.0
+        return max_abs_err(torch, [(a.nan_to_num(), b.nan_to_num())
+                                   for a, b in zip(got, want)])
+
     shards = shard_pools_over_positions(m2, z, lab, n1, n2)
-    groups = [kernels.pooled_groups(zs, ls) for zs, ls, _, _ in shards]
+    errs = [held(sh, f"shard {i}") for i, sh in enumerate(shards)]
+    for case in hardcases.POOLED_CASES:
+        errs.append(held([torch.from_numpy(x).to(dev) for x in
+                          hardcases.pooled_tile(case, seed=11)], case))
+    call = lambda: [kernels.pooled_rank_components(*sh)  # noqa: E731
+                    for sh in shards]
     res = {"shards": len(shards), "shard_shape": list(shards[0][0].shape),
-           "reshuffle_ms": time_ms(torch, lambda: [
-               kernels.pooled_groups(zs, ls) for zs, ls, _, _ in shards]),
-           "k3_ms": time_ms(torch, lambda: [
-               kernels.battery_rows_cuda(*g, milli=False) for g in groups]),
-           "ms": time_ms(torch, lambda: [
-               kernels.pooled_rank_components(*sh) for sh in shards])}
+           "cases": list(hardcases.POOLED_CASES), "max_abs_err": max(errs),
+           "ms": time_ms(torch, call), "single_ms": time_ms(torch, call, n=1),
+           "plain_ms": time_ms(torch, lambda: [
+               kernels.pooled_rank_components_plain(*sh) for sh in shards],
+               **PLAIN_TIMING)}
     res["bound_ms"], res["bound_by"] = bound(**pooled_work(torch, shards))
+    # the card runs the pooled kernel and nothing else (no argsort,
+    # gather, sum or divide): its device time a launch under the profiler
+    ops = device_ops(torch, call)
+    res["device_ops"] = sorted(ops)
+    res["device_ms_a_launch"] = device_ms(ops, "pooled_")
+    if any("pooled_" not in name for name in ops):
+        raise AssertionError(f"pooled_rank_components ran other device "
+                             f"operations: {sorted(ops)}")
     log("phase7 pooled", json.dumps(res))
     return res
 
@@ -2430,10 +2492,10 @@ def main() -> int:
     k1_wide = {p1[f"W{w}"]["W"]: {
         k: p1[f"W{w}"]["k1_" + k]
         for k in ("ms", "single_ms", "plain_ms", "bound_ms")}
-        for w in (DP_NARROW_TOP,) + DP_WIDE}
+        for w in p1["k1_widths"]}
     # K9 at distributed_detect_step's read-major events (phase 7d's input)
     k9_main = p7["k9"]["read_major"]
-    dp_runs = [r for m, r in p1.items() if m != "extra"] \
+    dp_runs = [r for m, r in p1.items() if m not in ("extra", "k1_widths")] \
         + list(p1["extra"].values())
     # no single PyTorch call computes any of these functions but K9's
     # (index_add_)
@@ -2486,6 +2548,17 @@ def main() -> int:
          "plain_ms": p7["k7"]["plain_ms"],
          "bound_ms": p7["k7"]["bound_ms"], "bound_by": p7["k7"]["bound_by"],
          "library_ms": None},
+        {"name": "battery_pooled", "route": "cuda",
+         "source": "nanomod_tpu_torch/csrc/battery.cu",
+         "replaces": "nanomod_tpu/stats/kernels.py:252",
+         "launches": p7_main["step_launches"]["battery_pooled"],
+         "max_abs_err": p7_main["pooled"]["max_abs_err"],
+         "ms": p7_main["pooled"]["ms"],
+         "single_ms": p7_main["pooled"]["single_ms"],
+         "plain_ms": p7_main["pooled"]["plain_ms"],
+         "bound_ms": p7_main["pooled"]["bound_ms"],
+         "bound_by": p7_main["pooled"]["bound_by"], "library_ms": None,
+         "shards": p7_main["pooled"]["shards"]},
         {"name": "accumulate", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/accumulate.cu",
          "replaces": "nanomod_tpu/parallel/mesh.py:70",

@@ -23,8 +23,10 @@
 //    of two).  The k+1 neighbour of a lane is in the same thread except
 //    for the thread's last lane, which takes the next thread's first by
 //    one __shfl_down_sync.
-//  * Any W in [1, 1024] (wider bands: banded_sw_wide_kernel, below, a
-//    block of several warps a read).  Lanes k >= W are computed and
+//  * Any W in [1, NARROW_MAX_W = 256] (wider bands: banded_sw_wide_kernel,
+//    below, a block of several warps a read, which is faster from W 257
+//    on at every batch size timed: kernels/k1_plans.py, PERF.md).  Lanes
+//    k >= W are computed and
 //    dropped: they only feed lanes above them (the running max runs up
 //    the band), except through the k+1 neighbour of lane W-1, which must
 //    read the band's end.  Whole threads past W are cut off by the
@@ -372,7 +374,7 @@ int launch(const void* read, const void* ref, const void* lens, void* tb,
 
 
 // ---------------------------------------------------------------------------
-// W in (1024, 32768]: a block of NW = ceil(W / (32 LP)) warps a read
+// W in (NARROW_MAX_W, 32768]: a block of NW = ceil(W / (32 LP)) warps a read
 // ---------------------------------------------------------------------------
 //
 // The same recurrences, lanes and order of operations as banded_sw_kernel;
@@ -442,6 +444,9 @@ int launch(const void* read, const void* ref, const void* lens, void* tb,
 // to local memory: slow, but bit-exact.
 
 constexpr int WIDE_MAX_W = 32768;
+// the widest band of the narrow kernel: above it the wide kernel runs
+// (resquiggle/banded_kernel.py NARROW_MAX_W is the same)
+constexpr int NARROW_MAX_W = 256;
 
 // one code as a one-hot nibble: 0 for a code of 4 or more (never a match)
 __device__ __forceinline__ uint32_t onehot(int c) {
@@ -769,6 +774,11 @@ struct WidePlan {
   int max_w, lp, maxt, minb;
 };
 constexpr WidePlan WIDE_PLANS[] = {
+    {384, 2, 1024, 1},
+    {448, 4, 512, 1},
+    {512, 8, 256, 2},
+    {768, 4, 512, 1},
+    {1024, 8, 256, 2},
     {1280, 4, 512, 1},
     {2048, 8, 256, 2},
     {8192, 16, 512, 1},
@@ -809,6 +819,32 @@ int launch_planned(const void* read, const void* ref, const void* lens,
                                            go, ge, stream);
 }
 
+// The narrow kernel, one warp a read, for w in [1, MAXW] (MAXW <= 1024):
+// LP, the band lanes a thread, is w / 32 rounded up to a power of two.
+// Only the LPs that MAXW needs are instantiated.
+template <int MAXW>
+int launch_narrow(const void* read, const void* ref, const void* lens,
+                  void* tb, void* best, void* bi, void* bk, int bsz, int m,
+                  int w, int pitch, float match, float mismatch, float go,
+                  float ge, cudaStream_t stream) {
+  static_assert(MAXW <= 1024, "one warp holds at most 32 lanes a thread");
+  if (w > MAXW) return (int)cudaErrorInvalidValue;
+  const int l = (w + 31) / 32;  // band lanes a thread must hold
+#define NM_LAUNCH(LP)                                                     \
+  return launch<LP>(read, ref, lens, tb, best, bi, bk, bsz, m, w, pitch, \
+                    match, mismatch, go, ge, stream)
+  if (l <= 1) NM_LAUNCH(1);
+  if (l <= 2) NM_LAUNCH(2);
+  if (l <= 4) NM_LAUNCH(4);
+  if (l <= 8) NM_LAUNCH(8);
+  if constexpr (MAXW > 256) {
+    if (l <= 16) NM_LAUNCH(16);
+  }
+  if constexpr (MAXW > 512) NM_LAUNCH(32);
+#undef NM_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // w in [1, 32768]; pitch: tb's row stride in bytes, w rounded up to a
@@ -820,22 +856,14 @@ extern "C" int nm_banded_sw(const void* read, const void* ref,
                             void* stream) {
   if (bsz <= 0 || m <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (w > 1024) {
+  if (w > NARROW_MAX_W) {
     if (w > WIDE_MAX_W) return (int)cudaErrorInvalidValue;
     return launch_planned<0>(read, ref, lens, tb, best, bi, bk, bsz, m, w,
                              pitch, match, mismatch, go, ge, st);
   }
-  const int l = (w + 31) / 32;  // band lanes a thread must hold
-#define NM_LAUNCH(LP)                                                     \
-  return launch<LP>(read, ref, lens, tb, best, bi, bk, bsz, m, w, pitch, \
-                    match, mismatch, go, ge, st)
-  if (l <= 1) NM_LAUNCH(1);
-  if (l <= 2) NM_LAUNCH(2);
-  if (l <= 4) NM_LAUNCH(4);
-  if (l <= 8) NM_LAUNCH(8);
-  if (l <= 16) NM_LAUNCH(16);
-  NM_LAUNCH(32);
-#undef NM_LAUNCH
+  return launch_narrow<NARROW_MAX_W>(read, ref, lens, tb, best, bi, bk, bsz,
+                                     m, w, pitch, match, mismatch, go, ge,
+                                     st);
 }
 
 extern "C" const char* nm_error_string(int code) {

@@ -46,8 +46,8 @@ NVCC_FLAGS = [
 ]
 
 # kernel name -> launches made by its wrapper in this process
-LAUNCHES = {"banded_sw": 0, "walk": 0, "battery": 0, "capped_ks": 0,
-            "stencil": 0, "accumulate": 0}
+LAUNCHES = {"banded_sw": 0, "walk": 0, "battery": 0, "battery_pooled": 0,
+            "capped_ks": 0, "stencil": 0, "accumulate": 0}
 
 _LOCK = threading.Lock()
 _LIB = {}
@@ -69,6 +69,8 @@ _SIGNATURES = {
     "nm_walk": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
     # v1, c1, C1, v2, c2, C2, P, is_i16, milli, out, stream
     "nm_battery": [_vp, _vp, _i, _vp, _vp, _i, _i, _i, _i, _vp, _vp],
+    # z, lab, n1, n2, P, N, d, two_rank_sum, tie_sum, stream
+    "nm_battery_pooled": [_vp, _vp, _vp, _vp, _i, _i, _vp, _vp, _vp, _vp],
     # v1, c1, C1, v2, c2, C2, row_index, P, cov, repeats, q_idx, seed_hi,
     # seed_lo, is_i16, out, stream
     "nm_capped_ks": [_vp, _vp, _i, _vp, _vp, _i, _vp, _i, _i, _i, _i, _u,

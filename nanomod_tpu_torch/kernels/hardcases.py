@@ -1,8 +1,10 @@
-"""Hard-case tiles for the battery kernels K3 (``battery_rows``) and K6
+"""Hard-case tiles for the battery kernels K3 (``battery_rows``, and
+``pooled_rank_components`` through K3's pooled entry) and K6
 (``capped_ks_d``): the inputs on which a kernel that sorts can go wrong
 where one that compares every pair cannot.
 
     k3_tile(case, p, seed) -> (values1, counts1, values2, counts2)
+    pooled_tile(case, seed) -> (z, lab, n1, n2)
     k6_tile(case, p, width, cov, seed) -> (values1, counts1, values2, counts2)
 
 numpy arrays made from ``seed``; values int16 milli (value * 1000) or f32,
@@ -22,6 +24,19 @@ K3 cases (widths from ``K3_WIDTHS``):
                   of K3's one-warp-a-row variant
     block_edge    pooled width 257 (129 + 128), full rows: the narrowest
                   tile of its one-block-a-row variant
+
+Pooled cases (z, lab [P, N] f32, n1, n2 [P] f32; shapes from
+``POOLED_SHAPES``; values with heavy ties, +inf pads):
+    random        the sharded demo step's layout, n1/n2 the groups' counts
+    empty_group1  group 1 (or 2) empty on some rows, n = max(count, 1)
+    counts_differ n1/n2 off the groups' counts: above, below, 0 (d inf or
+                  NaN) and fractional (truncated in the KS term only)
+    nan_neginf    NaN (a pad) and -inf (valid) in z, -0.0 and +0.0, NaN
+                  labels (in neither group) and labels of exactly 0.5
+    width_1       N = 1
+    width_256     N = 256, the widest row of the one-warp-a-row variant
+    width_257     N = 257, the narrowest of the one-block-a-row variant
+    no_rows       P = 0
 
 K6 cases (``cov`` the cap):
     nan_prefix    f32, NaN inside the valid prefix of either group
@@ -46,6 +61,12 @@ K3_CASES = tuple(K3_WIDTHS)
 K6_CASES = ("nan_prefix", "signed_zero", "one_run", "all_distinct",
             "counts_01", "under_over")
 F32_CASES = ("nan_prefix", "signed_zero")
+POOLED_SHAPES = {
+    "random": (200, 64), "empty_group1": (64, 32), "counts_differ": (64, 48),
+    "nan_neginf": (64, 40), "width_1": (50, 1), "width_256": (24, 256),
+    "width_257": (24, 257), "no_rows": (0, 16),
+}
+POOLED_CASES = tuple(POOLED_SHAPES)
 
 
 def _milli(rng, shape, levels):
@@ -107,6 +128,43 @@ def k3_tile(case: str, p: int, seed: int = 0):
         n1[: (3 * p) // 4] = c1
         n2[: (3 * p) // 4] = c2
     return v1, n1, v2, n2
+
+
+def pooled_tile(case: str, seed: int = 0):
+    """One pooled case: (z, lab, n1, n2)."""
+    rng = np.random.default_rng(seed)
+    p, n = POOLED_SHAPES[case]
+    z = (_milli(rng, (p, n), 20) / np.float32(1000)).astype(np.float32)
+    z[rng.random((p, n)) < 0.2] = np.inf
+    lab = (rng.random((p, n)) < 0.5).astype(np.float32)
+    if case == "empty_group1":
+        lab[::2] = 0.0
+        lab[1::4] = 1.0
+    elif case == "nan_neginf":
+        pick = rng.random((p, n))
+        z[pick < 0.1] = np.nan
+        z[(pick >= 0.1) & (pick < 0.2)] = -np.inf
+        z[(pick >= 0.2) & (pick < 0.3)] = -0.0
+        z[(pick >= 0.3) & (pick < 0.35)] = 0.0
+        z[0] = -np.inf
+        z[1] = np.nan
+        mark = rng.random((p, n))
+        lab[mark < 0.1] = np.nan
+        lab[(mark >= 0.1) & (mark < 0.2)] = 0.5
+    valid = z < np.inf
+    n1 = (valid & (lab > 0.5)).sum(1).astype(np.float32)
+    n2 = (valid & (lab <= 0.5)).sum(1).astype(np.float32)
+    if case == "empty_group1":
+        n1, n2 = np.maximum(n1, 1), np.maximum(n2, 1)
+    elif case == "counts_differ":
+        n1 = np.maximum(n1 + rng.integers(-3, 4, p), 0).astype(np.float32)
+        n2 = np.maximum(n2 + rng.integers(-3, 4, p), 0).astype(np.float32)
+        n1[::5] += np.float32(0.75)
+        n2[1::7] = 0.0
+        n1[2::7] = 0.0
+        z[3] = np.inf                  # no member: 0 / 0
+        n1[3] = 0.0
+    return z, lab, n1, n2
 
 
 def k6_tile(case: str, p: int, width: int, cov: int, seed: int = 0):

@@ -2,6 +2,8 @@
 // and the barriers a plan could be built on, for kernels/k1_plans.py: not
 // part of the kernel library, and the port does not call it.
 //
+// k1p_narrow runs the narrow kernel at any band width to 1024, so that it
+// can be timed beside the wide plans wherever the library's edge lies.
 // k1p_launch runs banded_sw_wide_kernel under any plan of NM_CANDIDATES
 // (lanes a thread, threads bound, blocks an SM asked), so that the plans
 // can be timed side by side on the same inputs; csrc/banded_sw.cu
@@ -57,6 +59,18 @@ extern "C" int k1p_launch(int idx, const void* read, const void* ref,
   NM_CANDIDATES(NM_LAUNCH)
 #undef NM_LAUNCH
   return (int)cudaErrorInvalidValue;
+}
+
+// the narrow kernel (one warp a read) at any w in [1, 1024], whatever the
+// library's NARROW_MAX_W: the other side of the narrow/wide crossover
+extern "C" int k1p_narrow(const void* read, const void* ref,
+                          const void* lens, void* tb, void* best, void* bi,
+                          void* bk, int bsz, int m, int w, int pitch,
+                          float match, float mismatch, float go, float ge,
+                          void* stream) {
+  return launch_narrow<1024>(read, ref, lens, tb, best, bi, bk, bsz, m, w,
+                             pitch, match, mismatch, go, ge,
+                             (cudaStream_t)stream);
 }
 
 namespace {

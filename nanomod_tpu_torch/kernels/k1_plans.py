@@ -1,8 +1,9 @@
-"""Time every candidate launch plan of K1's wide kernel (W > 1024) on one
-card, beside the library's own plan, the narrow kernel at W 1024 and,
-optionally, another checkout's K1.
+"""Time every candidate launch plan of K1's wide kernel on one card, beside
+the library's own plan, the narrow kernel to W 1024 and, optionally,
+another checkout's K1.
 
     python3 nanomod_tpu_torch/kernels/k1_plans.py [--parent DIR] [--json OUT]
+                                                  [--crossover]
 
 ``kernels/k1_plans.cu`` (which includes ``csrc/banded_sw.cu``) is built
 alone by nvcc with the library's flags under
@@ -14,11 +15,16 @@ shorter than M) at band width W, every plan whose block of
 ceil(W / (32 lanes)) warps fits its threads bound runs on the same
 inputs, and its outputs must equal the library's (``nm_banded_sw``) and
 the parent's.  Times: the median of 3 samples of 10 back-to-back
-launches (mean10) and of single launches, CUDA events.  The shapes: B 256,
-M 1024 (the main path's bucket) at W 1024 (the narrow kernel, one warp a
-read), 1025, 1280, 1536, 2048, 3072 and 4096; B 64, M 4096
-(``tools/bench_dp_buckets.py``) at W 2048 and 4096; and above W 4096, where the lane arrays spill, B 16,
-M 512 at W 8192, 16384 and 32768.
+launches (mean10) and of single launches, CUDA events.  The shapes: first
+the narrow/wide crossover (``CROSSOVER``: W 128-1024, where the narrow
+kernel, one warp a read, runs beside every wide plan, through
+``k1p_narrow`` whatever the library's edge; B 256, M 1024, B 64 at M 2048
+and 4096, and B 8), then (unless ``--crossover``) B 256,
+M 1024 (the main path's bucket) at W 1025, 1280, 1536, 2048, 3072
+and 4096; B 64, M 4096 (``tools/bench_dp_buckets.py``) at W 2048 and 4096;
+and above W 4096, where the lane arrays spill, B 16, M 512 at W 8192,
+16384 and 32768.  A plan whose outputs differ is reported, not timed, and
+the run exits 1 at its end.
 
 Also: each plan's registers and spills (ptxas) and the SASS instructions
 of its row loop, a row and a cell (``sass_ab.row_loop``); and the price of
@@ -39,11 +45,22 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SHAPES = [(256, 1024, 1024), (256, 1024, 1025), (256, 1024, 1280),
+SHAPES = [(256, 1024, 1025), (256, 1024, 1280),
           (256, 1024, 1536), (256, 1024, 2048), (256, 1024, 3072),
           (256, 1024, 4096),
           (64, 4096, 2048), (64, 4096, 4096), (16, 512, 8192),
           (16, 512, 16384), (16, 512, 32768)]
+# the narrow/wide crossover: the narrow kernel beside every wide plan at
+# B 256, M 1024 (the main path's bucket; pipeline._fit_batch keeps a full
+# sub-batch of 256 at these widths), B 64 at M 2048 and 4096
+# (tools/bench_dp_buckets.py's batch) and a small tail batch, B 8
+CROSSOVER = [(256, 1024, w) for w in (128, 192, 256, 257, 272, 288, 320,
+                                      384, 448, 512, 513, 576, 640, 704,
+                                      768, 832, 896, 960, 1000, 1024)] \
+    + [(64, m, w) for m in (2048, 4096)
+       for w in (256, 257, 288, 320, 384, 448, 512, 513, 640, 768, 896,
+                 1024)] \
+    + [(8, 1024, w) for w in (256, 257, 320, 384, 512, 513, 768, 1024)]
 SCORES = (2.0, -3.0, -5.0, -2.0)   # match, mismatch, gap open, extend
 BARRIER_ITERS = 4096
 
@@ -86,6 +103,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="another checkout's root: its K1 too")
     ap.add_argument("--json", help="write the results here")
+    ap.add_argument("--crossover", action="store_true",
+                    help="only the narrow/wide crossover's shapes")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import torch
@@ -106,6 +125,7 @@ def main(argv=None):
     k1_args = [vp] * 7 + [i_] * 4 + [f_] * 4 + [vp]
     plans = libs["plans"]
     plans.k1p_launch.argtypes = [i_] + k1_args
+    plans.k1p_narrow.argtypes = k1_args
     plans.k1p_plan.argtypes = [i_, vp]
     plans.k1p_barriers.argtypes = [i_, i_, i_, i_, vp, vp]
     lib = kbuild.lib()
@@ -139,8 +159,8 @@ def main(argv=None):
             ts.append(e0.elapsed_time(e1) / n)
         return float(np.median(ts))
 
-    results = {"card": card, "sass": sass, "shapes": []}
-    for b, m, w in SHAPES:
+    results = {"card": card, "sass": sass, "shapes": [], "differs": []}
+    for b, m, w in CROSSOVER + ([] if args.crossover else SHAPES):
         read, ref, lens = (torch.from_numpy(x).to(dev)
                            for x in inputs(rng, b, m, w))
         pitch = tb_pitch(w)
@@ -162,21 +182,24 @@ def main(argv=None):
         runs = {"library": runner(lib.nm_banded_sw)}
         if "parent" in libs:
             runs["parent"] = runner(libs["parent"].nm_banded_sw)
-        if w > 1024:
+        if w <= 1024:
+            runs["narrow"] = runner(plans.k1p_narrow)
+        if w >= 128:
             for idx, (lp, maxt, minb) in enumerate(cands):
                 if 32 * -(-w // (32 * lp)) <= maxt:
                     runs[f"lp{lp}_t{maxt}_b{minb}"] = runner(
                         lambda *a, idx=idx: plans.k1p_launch(idx, *a))
         want = None
         res = {"B": b, "M": m, "W": w, "mean10_ms": {}, "single_ms": {}}
-        for name, (fn, outs) in runs.items():
+        for name, (fn, outs) in list(runs.items()):
             fn()
             torch.cuda.synchronize()
             if want is None:
                 want = [o.clone() for o in outs]
             elif not all(torch.equal(x, y) for x, y in zip(outs, want)):
-                raise AssertionError(f"{name} differs from the library's "
-                                     f"K1 at B {b}, M {m}, W {w}")
+                # reported and not timed; the run fails at its end
+                results["differs"].append(f"{name} at B {b}, M {m}, W {w}")
+                del runs[name]
         for name, (fn, _) in runs.items():
             res["mean10_ms"][name] = time_ms(fn, 10)
             res["single_ms"][name] = time_ms(fn, 1)
@@ -204,6 +227,10 @@ def main(argv=None):
     if args.json:
         with open(args.json, "w") as f:
             json.dump(results, f, indent=1)
+    if results["differs"]:
+        print("differs from the library's K1:", results["differs"],
+              file=sys.stderr)
+        return 1
     return 0
 
 

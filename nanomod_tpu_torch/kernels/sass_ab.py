@@ -12,9 +12,9 @@ the main path runs (K1 at 4 lanes a thread, W = 128, not ragged; K2 with
 its codes four a byte) it prints ptxas's registers and spills, the SASS
 instruction count, and the opcodes whose counts differ between A and B;
 their two SASS listings and opcode-sequence diff are written to ``--out``.
-For every instantiation of K1's wide kernel (W > 1024) in A and in B it
-prints ptxas's registers and spills and the SASS instructions of the row
-loop (``row_loop``: a row's, per thread, and a cell's).
+For every instantiation of K1's wide kernel (W > NARROW_MAX_W) in A and
+in B it prints ptxas's registers and spills and the SASS instructions of
+the row loop (``row_loop``: a row's, per thread, and a cell's).
 
 Then both libraries are loaded into one process and their C entry points
 called through ctypes, with no PyTorch wrapper, on the same inputs as

@@ -162,7 +162,8 @@ def distributed_detect_step(mesh: Mesh, genome_len: int, read_pos, read_val,
          of each data row, reads split on axis 0 over 'data'), summed over
          the 'data' axis;
       2. position-sharded KS / rank components over the pooled layout
-         (pooled_rank_components, K3 on CUDA), a shard a device;
+         (pooled_rank_components, K3's pooled entry on CUDA), a shard a
+         device;
       3. the per-position D of every shard concatenated in shard order.
 
     Returns (cnt, s1, s2, d_all, trs, ties) on the mesh's first device:

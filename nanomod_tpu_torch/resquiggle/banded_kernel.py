@@ -5,11 +5,13 @@ banded_sw_pallas: same inputs and outputs as resquiggle/banded.py
 banded_sw, array-equal to it.  Unlike the Pallas wrapper, no [B, M, W] f32
 substitution array is built (the kernel scores the u8 codes itself) and B
 need not be a multiple of 8, and W is any width in [1, MAX_W].  Up to
-W = 1024 one warp aligns one read; a wider band runs a block of
-ceil(W / (32 LP)) warps a read, which exchange the band's boundary through
-shared memory once a row (see the kernel's source note).  LP, the lanes a
-thread, comes from W through the plan table WIDE_PLANS, which the
-kernel's dispatch holds too (``wide_plan`` gives a band width's launch).
+W = NARROW_MAX_W (256) one warp aligns one read; a wider band runs a block
+of ceil(W / (32 LP)) warps a read, which exchange the band's boundary
+through shared memory once a row (see the kernel's source note), and
+which is the faster of the two from W 257 on (kernels/k1_plans.py).  LP,
+the lanes a thread, comes from W through the plan table WIDE_PLANS, which
+the kernel's dispatch holds too (``wide_plan`` gives a band width's
+launch).
 The traceback rows are written with a pitch of W rounded up to a multiple
 of 32 bytes (``tb_pitch``), and the [B, M, W] view of them is returned; K2
 reads that pitch.  The plain version is banded.banded_sw_plain.
@@ -22,13 +24,18 @@ import torch
 from nanomod_tpu_torch.kernels import build as kbuild
 
 MAX_W = 32768  # 32 warps of 32 lanes a thread at most
-NARROW_MAX_W = 1024  # one warp a read up to here
+NARROW_MAX_W = 256  # one warp a read up to here (csrc/banded_sw.cu's too)
 
 # K1's launch plans above NARROW_MAX_W, the same table as csrc/banded_sw.cu
 # WIDE_PLANS: (largest W, lanes a thread, threads bound, blocks an SM
 # asked of the compiler); a band width takes the first plan whose largest
 # W is >= it.
 WIDE_PLANS = (
+    (384, 2, 1024, 1),
+    (448, 4, 512, 1),
+    (512, 8, 256, 2),
+    (768, 4, 512, 1),
+    (1024, 8, 256, 2),
     (1280, 4, 512, 1),
     (2048, 8, 256, 2),
     (8192, 16, 512, 1),

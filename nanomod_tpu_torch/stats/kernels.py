@@ -12,9 +12,10 @@ int32.  ``battery_rows`` dispatches on the device of its tensors: the plain
 PyTorch version ``battery_rows_plain`` for CPU tensors, kernel K3
 (csrc/battery.cu) for CUDA tensors.  ``capped_ks_d``, the coverage-capped
 KS, dispatches the same way between ``capped_ks_d_plain`` and kernel K6
-(csrc/capped_ks.cu).  The float64 host finalizers
-(``mwu_from_components``, ``welch_finalize_exact``, ``welch_finalize``) are
-the reference's.
+(csrc/capped_ks.cu), and ``pooled_rank_components`` between
+``pooled_rank_components_plain`` and K3's pooled entry.  The float64 host
+finalizers (``mwu_from_components``, ``welch_finalize_exact``,
+``welch_finalize``) are the reference's.
 """
 
 from __future__ import annotations
@@ -212,31 +213,55 @@ def pooled_rank_components_plain(z, lab, n1, n2):
     return d_num.to(torch.float32) / (n1 * n2), trs, ties
 
 
-def pooled_groups(z, lab):
-    """The pooled layout as K3's two groups: each group's valid values moved
-    to the front of its row (stable, so in their pooled order) and its
-    count, (values1, counts1, values2, counts2)."""
-    valid = z < float("inf")
-    out = []
-    for mask in (valid & (lab > 0.5), valid & (lab <= 0.5)):
-        order = torch.argsort((~mask).to(torch.int32), dim=1, stable=True)
-        out += [torch.gather(z, 1, order).contiguous(),
-                mask.sum(dim=1, dtype=torch.int32)]
-    return tuple(out)
+# widest pooled row K3's pooled entry takes (csrc/battery.cu POOLED_MAX_N)
+POOLED_MAX_WIDTH = 8192
+
+
+def pooled_rank_components_cuda(z, lab, n1, n2):
+    """Launch K3's pooled entry (csrc/battery.cu nm_battery_pooled) on CUDA
+    tensors: one launch reads the pooled layout in place and writes d,
+    two_rank_sum and tie_sum, what pooled_rank_components_plain gives."""
+    dev = z.device
+    if dev.type != "cuda":
+        raise ValueError(f"pooled_rank_components_cuda needs CUDA tensors, "
+                         f"got {dev}")
+    for t in (lab, n1, n2):
+        if t.device != dev:
+            raise ValueError("all inputs must be on one device")
+    if any(t.dtype != torch.float32 for t in (z, lab, n1, n2)):
+        raise ValueError("z, lab, n1 and n2 must be float32")
+    if z.dim() != 2 or lab.shape != z.shape:
+        raise ValueError("z and lab must be [P, N]")
+    p_dim, width = z.shape
+    if n1.shape != (p_dim,) or n2.shape != (p_dim,):
+        raise ValueError("n1 and n2 must be [P]")
+    if not 1 <= width <= POOLED_MAX_WIDTH:
+        raise ValueError(f"pooled width {width} is not in [1, "
+                         f"{POOLED_MAX_WIDTH}] (the kernel's shared-memory "
+                         f"stage)")
+    d = torch.empty(p_dim, dtype=torch.float32, device=dev)
+    trs = torch.empty(p_dim, dtype=torch.int32, device=dev)
+    ties = torch.empty(p_dim, dtype=torch.int32, device=dev)
+    if p_dim == 0:
+        return d, trs, ties
+    z, lab, n1, n2 = (t.contiguous() for t in (z, lab, n1, n2))
+    kbuild.launch("battery_pooled", "nm_battery_pooled", dev, z.data_ptr(),
+                  lab.data_ptr(), n1.data_ptr(), n2.data_ptr(), p_dim, width,
+                  d.data_ptr(), trs.data_ptr(), ties.data_ptr())
+    kbuild.LAUNCHES["battery_pooled"] += 1
+    return d, trs, ties
 
 
 def pooled_rank_components(z, lab, n1, n2):
     """Rank / KS components from a pooled layout (the reference's
     pooled_rank_components): z [P, N] f32 with +inf pads, lab [P, N] f32
-    (1.0 = group 1), n1/n2 [P] f32, the groups' valid counts.  Returns (d
-    f32 = ks_num / (n1 n2), two_rank_sum i32, tie_sum i32) [P].  For CPU
-    tensors the plain version; for CUDA tensors the layout is reshuffled
-    into K3's two groups on the card and K3's f32 path runs (raises if it
-    cannot launch)."""
+    (1.0 = group 1), n1/n2 [P] f32, the groups' counts.  Returns (d f32 =
+    ks_num / (n1 n2), two_rank_sum i32, tie_sum i32) [P].  For CPU tensors
+    the plain version; for CUDA tensors one launch of K3's pooled entry
+    (raises if it cannot launch)."""
     if z.device.type == "cpu":
         return pooled_rank_components_plain(z, lab, n1, n2)
-    rows = battery_rows_cuda(*pooled_groups(z, lab), milli=False)
-    return rows[0].to(torch.float32) / (n1 * n2), rows[1], rows[2]
+    return pooled_rank_components_cuda(z, lab, n1, n2)
 
 
 # ---------------------------------------------------------------------------

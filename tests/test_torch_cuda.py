@@ -13,6 +13,8 @@ import torch
 from nanomod_tpu_torch.kernels import build as kbuild
 from nanomod_tpu_torch.kernels import hardcases
 from nanomod_tpu_torch.resquiggle import banded
+from nanomod_tpu_torch.resquiggle.banded_kernel import (NARROW_MAX_W,
+                                                        WIDE_PLANS)
 from nanomod_tpu_torch.stats import battery, kernels
 
 pytestmark = pytest.mark.cuda
@@ -224,6 +226,43 @@ def test_k1_wide_plans_ties_and_mismatch(dev, w):
         for a, c in zip(got, want):
             assert torch.equal(a, c)
         if make is _mismatch:
+            assert not got[1].any() and not got[2].any() and \
+                not got[3].any()
+
+
+# the narrow/wide edge: the narrow kernel's widest band (NARROW_MAX_W), the
+# wide kernel's narrowest and the next; each wide plan's last band and the
+# next plan's first up to 1024 / 1025
+EDGE_WIDTHS = sorted({NARROW_MAX_W, NARROW_MAX_W + 1, NARROW_MAX_W + 2}
+                     | {w + i for w, *_ in WIDE_PLANS if w <= 1024
+                        for i in (0, 1)})
+
+
+@pytest.mark.parametrize("b", [1, 37, 64])
+@pytest.mark.parametrize("w", EDGE_WIDTHS)
+def test_k1_narrow_wide_edge_matches_plain(dev, w, b):
+    """K1 either side of its narrow/wide edge (the narrow kernel's widest
+    instantiation, the wide kernel's narrowest plan) and of each wide
+    plan's range up to 1025: array-equal to the plain version, and K2's
+    walks with it."""
+    rng = np.random.default_rng(w * 10 + b)
+    read, ref, lens = _wide_reads(rng, b, 96, w)
+    _k1_k2_equal(dev, read, ref, lens)
+
+
+@pytest.mark.parametrize("w", EDGE_WIDTHS)
+def test_k1_narrow_wide_edge_ties_and_mismatch(dev, w):
+    rng = np.random.default_rng(w + 3)
+    for make in (_ties, _mismatch):
+        read, ref, lens = (torch.from_numpy(x).to(dev)
+                           for x in make(rng, 37, 80, w))
+        got = banded.banded_sw(read, ref, lens)
+        want = banded.banded_sw_plain(read, ref, lens)
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+        if make is _ties:
+            assert got[1].min() > 0
+        else:
             assert not got[1].any() and not got[2].any() and \
                 not got[3].any()
 
@@ -495,9 +534,32 @@ def test_k7_step_is_one_kernel_and_nothing_else(dev):
     assert all("stencil_step_kernel" in name for name in names), names
 
 
+def _k9_bound_check(got, pos, val, keep, g):
+    """Sums (cnt, s1, s2) held to a float64 sum of the same kept events, at
+    each position p with n_p of them: s1 within (n_p - 1) 2^-24 sum |x|
+    and s2 within n_p 2^-24 sum x^2, the error bound of recursive f32
+    summation in any order (one rounding an addition, each at most 2^-24
+    of a partial sum's magnitude; the squares add one rounding each)."""
+    p = pos[keep]
+    x = val[keep].astype(np.float64)
+    n = np.bincount(p, minlength=g)
+    s64 = np.bincount(p, weights=x, minlength=g)
+    q64 = np.bincount(p, weights=x * x, minlength=g)
+    abs64 = np.bincount(p, weights=np.abs(x), minlength=g)
+    eps = 2.0 ** -24
+    s1 = got[1].numpy().astype(np.float64)
+    s2 = got[2].numpy().astype(np.float64)
+    over1 = np.abs(s1 - s64) > np.maximum(n - 1, 0) * eps * abs64
+    over2 = np.abs(s2 - q64) > n * eps * q64
+    assert not over1.any(), np.flatnonzero(over1)[:10]
+    assert not over2.any(), np.flatnonzero(over2)[:10]
+
+
 def _k9_equal(dev, pos, val, ok, g):
     """K9 on the card against the plain version and index_add_: counts
-    equal, sums within rtol 1e-5 and atol 1e-5."""
+    equal; the sums of both K9 and the plain version within the bound of
+    f32 summation of a float64 sum of the same events
+    (``_k9_bound_check``)."""
     from nanomod_tpu_torch.parallel import mesh
     t = [torch.from_numpy(x).to(dev) for x in (pos, val, ok)]
     before = kbuild.launch_counts()["accumulate"]
@@ -510,8 +572,8 @@ def _k9_equal(dev, pos, val, ok, g):
     keep = torch.from_numpy(ok.reshape(-1)) & (p >= 0) & (p < g)
     lib = torch.zeros(g).index_add_(0, p[keep], torch.ones(int(keep.sum())))
     assert torch.equal(got[0], want[0]) and torch.equal(got[0], lib)
-    for a, b in zip(got[1:], want[1:]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for sums in (got, want):
+        _k9_bound_check(sums, p.numpy(), val.reshape(-1), keep.numpy(), g)
 
 
 def test_k9_matches_plain(dev):
@@ -563,6 +625,24 @@ def test_k9_edge_cases_match_plain(dev, case):
     _k9_equal(dev, pos, val, ok, g)
 
 
+def _pooled_equal(dev, arrays):
+    """K3's pooled entry (one launch) against the plain version on the
+    card: d bit-equal (NaN equal to NaN), the rank and tie sums
+    array-equal."""
+    t = [torch.from_numpy(x).to(dev) for x in arrays]
+    before = kbuild.launch_counts()
+    got = kernels.pooled_rank_components(*t)
+    after = kbuild.launch_counts()
+    launched = 1 if arrays[0].shape[0] else 0
+    assert after["battery_pooled"] == before["battery_pooled"] + launched
+    assert after["battery"] == before["battery"]
+    want = kernels.pooled_rank_components_plain(*t)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    return got
+
+
 def test_pooled_rank_components_on_k3_match_plain(dev):
     rng = np.random.default_rng(4)
     p, n = 3000, 64
@@ -575,13 +655,80 @@ def test_pooled_rank_components_on_k3_match_plain(dev):
     fin = np.isfinite(z)
     n1 = (lab * fin).sum(1).astype(np.float32)
     n2 = ((1 - lab) * fin).sum(1).astype(np.float32)
-    t = [torch.from_numpy(x).to(dev) for x in (z, lab, n1, n2)]
+    _pooled_equal(dev, (z, lab, n1, n2))
+
+
+@pytest.mark.parametrize("case", hardcases.POOLED_CASES)
+def test_pooled_cases_match_plain(dev, case):
+    """The pooled hard cases (the CPU tests hold the plain version to JAX
+    on the same tiles): an empty group 1 with n1 = 1 gives d = 1.0."""
+    arrays = hardcases.pooled_tile(case, seed=11)
+    got = _pooled_equal(dev, arrays)
+    if case == "empty_group1":
+        z, lab, _, n2 = arrays
+        empty = ((z < np.inf) & (lab > 0.5)).sum(1) == 0
+        assert (got[0].cpu().numpy()[empty & (n2 > 0)] == 1.0).all()
+
+
+@pytest.mark.parametrize("n", [33, 100, 1000, 4096, 8192])
+def test_pooled_widths_match_plain(dev, n):
+    """Every variant of the pooled entry (one warp a row to N 256, E 2, 4,
+    8; one block a row above, to the 8,192 stage) on rows with ties."""
+    rng = np.random.default_rng(n)
+    p = 40 if n > 1000 else 300
+    z = np.where(rng.random((p, n)) < 0.9,
+                 rng.integers(-30, 30, (p, n)) * 0.25, np.inf
+                 ).astype(np.float32)
+    lab = (rng.random((p, n)) < 0.4).astype(np.float32)
+    valid = z < np.inf
+    n1 = (valid & (lab > 0.5)).sum(1).astype(np.float32)
+    n2 = (valid & (lab <= 0.5)).sum(1).astype(np.float32)
+    _pooled_equal(dev, (z, lab, n1, n2))
+
+
+def test_pooled_width_above_the_stage_raises(dev):
+    z = torch.zeros((2, kernels.POOLED_MAX_WIDTH + 1), device=dev)
+    n = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="pooled width 8193"):
+        kernels.pooled_rank_components(z, z, n, n)
+
+
+def test_pooled_rank_components_is_one_kernel_and_nothing_else(dev):
+    """The profiler sees one device operation a pooled_rank_components
+    call: the pooled kernel (no argsort, gather, sum or divide).  The card
+    idles 50 ms on either side: the tracer misses the start of its
+    window."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+    arrays = hardcases.pooled_tile("random", seed=5)
+    t = [torch.from_numpy(x).to(dev) for x in arrays]
+    kernels.pooled_rank_components(*t)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(5):
+            kernels.pooled_rank_components(*t)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 5, names
+    assert all("pooled_warp" in name for name in names), names
+
+
+def test_battery_on_card_matches_independent_ground_truth(dev):
+    """K3's milli path on the eleven cases of tests/golden/
+    scipy121_cases.json (exact rationals and 60-digit p-values), with the
+    bounds of tests/test_torch_scipy121.py."""
+    from test_torch_scipy121 import (CASES, as_pools,
+                                     check_against_ground_truth)
     before = kbuild.launch_counts()["battery"]
-    got = kernels.pooled_rank_components(*t)
-    assert kbuild.launch_counts()["battery"] == before + 1
-    want = kernels.pooled_rank_components_plain(*t)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for case in CASES:
+        res = battery.run_battery(*as_pools(case), backend="device",
+                                  device=dev)
+        check_against_ground_truth(res, case)
+    assert kbuild.launch_counts()["battery"] >= before + len(CASES)
 
 
 @pytest.mark.parametrize("method,cov", [("stouffer", 0), ("fisher", 40),

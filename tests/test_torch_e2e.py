@@ -79,8 +79,8 @@ def test_annotate_fast5_byte_identical(chain):
             metrics = json.load(f)
         # on the CPU the wrappers run the plain versions: no kernel launch
         assert metrics["kernel_launches"] == {
-            "banded_sw": 0, "walk": 0, "battery": 0, "capped_ks": 0,
-            "stencil": 0, "accumulate": 0}
+            "banded_sw": 0, "walk": 0, "battery": 0, "battery_pooled": 0,
+            "capped_ks": 0, "stencil": 0, "accumulate": 0}
         assert metrics["reads_ok"] >= 10
 
 

@@ -46,6 +46,7 @@ from nanomod_tpu.stats.kernels import (
 from nanomod_tpu_torch import config as tcfg
 from nanomod_tpu_torch.accum.pools import PoolBuilder
 from nanomod_tpu_torch.kernels import build as kbuild
+from nanomod_tpu_torch.kernels import hardcases
 from nanomod_tpu_torch.parallel import dist, mesh, sharded
 from nanomod_tpu_torch.stats import kernels
 
@@ -353,15 +354,28 @@ def test_pooled_rank_components_plain_equals_jax():
     np.testing.assert_array_equal(got[2].numpy(), want[2])
 
 
-def test_pooled_groups_feed_k3_rows():
-    """The layout reshuffle of the card's route: K3's plain rows on the
-    reshuffled groups equal the pooled plain version."""
-    z, lab, n1, n2 = (torch.from_numpy(x) for x in _pooled(48, 40, seed=3))
-    rows = kernels.battery_rows_plain(*kernels.pooled_groups(z, lab),
-                                      milli=False)
-    d, trs, ties = kernels.pooled_rank_components_plain(z, lab, n1, n2)
-    assert torch.equal(rows[0].to(torch.float32) / (n1 * n2), d)
-    assert torch.equal(rows[1], trs) and torch.equal(rows[2], ties)
+@pytest.mark.parametrize("case", hardcases.POOLED_CASES)
+def test_pooled_rank_components_cases_equal_jax(case):
+    """The pooled hard cases (kernels/hardcases.py: an empty group with n =
+    max(count, 1), counts off the masks and 0, NaN and -inf in z, NaN
+    labels, N = 1, 256, 257, P = 0): two_rank_sum and tie_sum
+    array-equal, d bit-equal (NaN equal to NaN) to the JAX package, whose
+    d is the exact f32 quotient f32(ks_num) / (n1 * n2) too."""
+    arrays = hardcases.pooled_tile(case, seed=11)
+    want = [np.asarray(x) for x in jax_pooled_rank_components(*arrays)]
+    got = kernels.pooled_rank_components(
+        *(torch.from_numpy(x) for x in arrays))
+    torch.testing.assert_close(got[0], torch.from_numpy(want[0].copy()),
+                               rtol=0, atol=0, equal_nan=True)
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    if case == "empty_group1":
+        # group 1 empty, n1 = 1: ks_num = n1 * (every group-2 value) = n2,
+        # so d = n2 / (1 * n2) = 1 where group 2 has members
+        z, lab, n1, n2 = arrays
+        empty = ((z < np.inf) & (lab > 0.5)).sum(1) == 0
+        assert (got[0].numpy()[empty & (n2 > 0)] == 1.0).all()
+        assert empty.sum() >= 16
 
 
 def test_distributed_detect_step_equals_jax(jmesh, tmesh):

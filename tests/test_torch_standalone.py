@@ -6,7 +6,9 @@ port's native loader builds only into nanomod_tpu_torch/_build/."""
 
 import dataclasses
 import filecmp
+import glob
 import os
+import re
 import subprocess
 import types
 
@@ -197,15 +199,50 @@ def test_loader_builds_into_the_port_build_dir(tmp_path, monkeypatch):
     assert _snapshot(REF_NATIVE) == before
 
 
-def test_external_aligner_module_is_a_copy():
-    """resquiggle/external.py is the reference's text with a first line
-    naming its source and only its imports changed."""
-    with open(os.path.join(ROOT, "nanomod_tpu", "resquiggle",
-                           "external.py")) as f:
+COPY_LINE = re.compile(r"# Copied from (\S+); only the imports differ\.")
+# copies whose imports are not a rename of the reference's (seed.py
+# imports the port's own native loader): compared with every line naming
+# nanomod_tpu dropped on both sides
+LINE_RULE = ("resquiggle/seed.py",)
+
+
+def _verbatim_copies():
+    """{port path relative to the package: source path} of every module of
+    the port whose first line reads "# Copied from <path>; only the imports
+    differ."."""
+    pkg = os.path.join(ROOT, "nanomod_tpu_torch")
+    copies = {}
+    for path in sorted(glob.glob(os.path.join(pkg, "**", "*.py"),
+                                 recursive=True)):
+        with open(path) as f:
+            match = COPY_LINE.fullmatch(f.readline().rstrip("\n"))
+        if match:
+            copies[os.path.relpath(path, pkg)] = match.group(1)
+    return copies
+
+
+COPIES = _verbatim_copies()
+
+
+def test_verbatim_copies_are_found():
+    assert len(COPIES) >= 20
+    assert "resquiggle/external.py" in COPIES and "config.py" in COPIES
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_verbatim_copy_equals_its_source(rel):
+    """A copy is its source's text after its first line, with ``from
+    nanomod_tpu.`` imports renamed ``from nanomod_tpu_torch.`` (for the
+    copies of LINE_RULE: with the lines naming nanomod_tpu dropped), so a
+    fix in the reference that is not carried to its copy fails here."""
+    with open(os.path.join(ROOT, COPIES[rel])) as f:
         ref = f.read()
-    with open(os.path.join(ROOT, "nanomod_tpu_torch", "resquiggle",
-                           "external.py")) as f:
-        first, port = f.read().split("\n", 1)
-    assert first == ("# Copied from nanomod_tpu/resquiggle/external.py; "
-                     "only the imports differ.")
-    assert port == ref.replace("from nanomod_tpu.", "from nanomod_tpu_torch.")
+    with open(os.path.join(ROOT, "nanomod_tpu_torch", rel)) as f:
+        port = f.read().split("\n", 1)[1]
+    if rel in LINE_RULE:
+        def drop(text):
+            return [ln for ln in text.splitlines() if "nanomod_tpu" not in ln]
+        assert drop(port) == drop(ref)
+    else:
+        assert port == ref.replace("from nanomod_tpu.",
+                                   "from nanomod_tpu_torch.")

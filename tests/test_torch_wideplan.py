@@ -1,9 +1,10 @@
-"""K1's launch plans above band width 1024 (resquiggle/banded_kernel.py
-wide_plan, WIDE_PLANS) against the kernel's own table (csrc/banded_sw.cu
-WIDE_PLANS), and what a plan must give at every band width in
-(1024, 32768]: lanes that cover the band, a block the card can launch,
-shared memory a block can hold.  No card needed: the C table is read from
-the source."""
+"""K1's launch plans above its narrow kernel's widest band
+(resquiggle/banded_kernel.py NARROW_MAX_W, wide_plan, WIDE_PLANS) against
+the kernel's own table and edge (csrc/banded_sw.cu WIDE_PLANS,
+NARROW_MAX_W), and what a plan must give at every band width in
+(NARROW_MAX_W, 32768]: lanes that cover the band, a block the card can
+launch, shared memory a block can hold.  No card needed: the C table is
+read from the source."""
 
 import os
 import re
@@ -31,13 +32,16 @@ def _c_plans():
 
 def test_python_plans_are_the_kernels_table():
     assert bk.WIDE_PLANS == _c_plans()
+    edge = re.search(r"constexpr int NARROW_MAX_W = (\d+);", _c_source())
+    assert edge and int(edge.group(1)) == bk.NARROW_MAX_W
 
 
 def test_plans_cover_the_wide_range_in_order():
     max_ws = [p[0] for p in bk.WIDE_PLANS]
     assert max_ws == sorted(max_ws)
     assert max_ws[-1] == bk.MAX_W
-    assert bk.NARROW_MAX_W == 1024
+    assert bk.NARROW_MAX_W < max_ws[0]
+    assert bk.NARROW_MAX_W <= 1024   # one warp of 32 lanes a thread at most
     for _, lanes, max_threads, min_blocks in bk.WIDE_PLANS:
         assert lanes in (2, 4, 8, 16, 32)       # the nibble window's words
         assert max_threads % 32 == 0 and max_threads <= 1024
@@ -63,8 +67,9 @@ def test_static_shared_memory_is_the_kernels():
     assert total == bk.WIDE_STATIC_SMEM
 
 
-@pytest.mark.parametrize("lo,hi", [(1025, 9217), (9217, 17409),
-                                   (17409, 25601), (25601, 32769)])
+@pytest.mark.parametrize("lo,hi", [(bk.NARROW_MAX_W + 1, 9217),
+                                   (9217, 17409), (17409, 25601),
+                                   (25601, 32769)])
 def test_every_wide_band_width_has_a_launch(lo, hi):
     """For every W: the lanes cover W and no whole warp lies past it, the
     block is within the instantiation's threads bound and 1,024 threads,
@@ -82,7 +87,7 @@ def test_every_wide_band_width_has_a_launch(lo, hi):
         assert p["smem_bytes"] <= bk.SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("w", [1, 1024, 32769, 65536])
+@pytest.mark.parametrize("w", [1, bk.NARROW_MAX_W, 32769, 65536])
 def test_narrow_and_too_wide_bands_have_no_wide_plan(w):
     with pytest.raises(ValueError, match="is not in"):
         bk.wide_plan(w)
