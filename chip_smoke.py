@@ -25,7 +25,13 @@ Phase 1  K1 (banded DP) and K2 (the traceback walk, its codes one a byte
          1025.  tb, best, best_i, best_k and both
          walk outputs must be array-equal, and K2's rows with the DP header
          (banded.walk_outputs, bests moved to x.5 and off it) byte-equal to
-         pack_outputs of the walk in every mode.  Each kernel's time is printed
+         pack_outputs of the walk in every mode.  Also B = 64, M = 4096 at
+         W = 2048 and 4096 (K2's windowed walk there, timed beside its
+         bound and its chain floor: the longest walk's steps times a
+         dependent shared-memory load), K1 at W = 512 for B = 8 and B = 64,
+         M = 4096, and at M = 256 either side of K1's batch threshold
+         (FULL_BATCH - 1 and FULL_BATCH reads) at every plan row whose plan
+         changes with the batch.  Each kernel's time is printed
          beside its bound (the plain versions timed at M = 1024) and the
          range of single launches recorded for the first kernels
          (PERF.md).
@@ -113,7 +119,10 @@ Phase 7  the multi-device and multi-process paths.  (a) K7, the neighbor
          of a mesh of cuda:0 four times, k = 2 and 5, cov 0 and 200, two
          joins (positions start again inside a shard), capped rows beside
          uncapped ones, padding rows, the mesh's edges; array-equal, one
-         launch a step, and no device operation but K7's kernel, at most
+         launch a step, and equal to the route for cards without peer
+         access forced on one card (each neighbour's edge columns copied
+         first, then read at their own offset; its step timed too); no
+         device operation but K7's kernel, at most
          once a step, in the profiler's trace of 100 steps; K7's device
          time, mean10, single launches and the step through
          sharded_stencil.  (b) K9, the event accumulation, against its
@@ -240,6 +249,16 @@ DP_OFF_GRID_MAIN = (130, 100)
 # NARROW_MAX_W: the narrow kernel's widest band and the wide kernel's
 # narrowest) and at 1024
 DP_WIDE = (1025, 2048, 4096)
+# the windowed walk (and K1) at tools/bench_dp_buckets.py's bucket, B 64 x
+# M 4096, and K1 at W 512 where its launch plan depends on the batch: (B,
+# M, W)
+DP_LONG = ((64, 4096, 2048), (64, 4096, 4096))
+DP_K1_BATCH = ((8, 1024, 512), (64, 4096, 512))
+# a dependent shared-memory load on one H100 at 700 W, load to use, SM
+# clocks (kernels/k1_plans.py lds_chain): the step chain of K2's walk is
+# at least one such load a step, at the SM's 1.98 GHz
+SMEM_LOAD_CLOCKS = 23
+SM_CLOCK_HZ = 1.98e9
 # the bests' fractional parts in phase 1's header checks (round half to
 # even), cycled over a batch
 HALF_BESTS = (0.5, -0.5, 1.5, 2.5, 0.0, -1.5)
@@ -676,6 +695,29 @@ def dp_check(torch, banded, banded_sw_cuda, read, ref, lens, what):
             max_abs_err(torch, pairs))
 
 
+def walk_chain_floor(torch, codes, packed):
+    """The walk's chain floor: the longest walk's steps (its non-zero codes
+    and one stop step) times a dependent shared-memory load, in ms."""
+    if packed:
+        shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
+                              device=codes.device)
+        codes = (codes[..., None] >> shifts) & 3
+    steps = int(codes.reshape(codes.shape[0], -1).ne(0).sum(1).max()) + 1
+    return {"longest_walk_steps": steps,
+            "chain_floor_ms": steps * SMEM_LOAD_CLOCKS / SM_CLOCK_HZ * 1e3}
+
+
+def k1_batch_edges():
+    """(B, W) pairs either side of K1's batch threshold (FULL_BATCH), at
+    the widest band of every plan row whose plan changes with the batch
+    (to W 4096)."""
+    from nanomod_tpu_torch.resquiggle.banded_kernel import (FULL_BATCH,
+                                                            WIDE_PLANS)
+    return [(b, max_w) for max_w, part, full in WIDE_PLANS
+            if part != full and max_w <= 4096
+            for b in (FULL_BATCH - 1, FULL_BATCH)]
+
+
 def k1_edge_widths(past=1):
     """K1's narrow/wide edge: the narrow kernel's widest band
     (NARROW_MAX_W) and the wide kernel's first ``past`` bands, and 1024
@@ -744,6 +786,7 @@ def phase1(torch, dev):
             torch, ck, packed=res["walk_mode"] == "codes2"))
         res["k2h_bound_ms"], res["k2h_bound_by"] = bound(**k2_work(
             torch, ck, packed=res["walk_mode"] == "codes2", header=True))
+        res.update(walk_chain_floor(torch, ck, packed))
         log("phase1", json.dumps(res))
         if (m, w) == (MAIN_PATH_BUCKET, W):
             for name, key in (("banded_sw", "k1"), ("walk", "k2")):
@@ -755,6 +798,32 @@ def phase1(torch, dev):
                     f"{res[key + '_bound_ms']:.6f} ms "
                     f"({res[key + '_bound_by']})")
         out[m if w == W else f"W{w}"] = res
+
+    # the windowed walk at B 64 x M 4096 and K1 where its plan depends on
+    # the batch: both against their plain versions, timed beside their
+    # bounds (and the walk beside its chain floor)
+    for b, m, w in DP_LONG + DP_K1_BATCH:
+        read, ref, lens = on_card(synth_reads(rng, b, m, w))
+        k_out, e1, e2 = dp_check(torch, banded, banded_sw_cuda, read, ref,
+                                 lens, f"B={b} M={m} W={w}")
+        tb, best, bi, bk = k_out
+        ck, packed = banded.walk(tb, bi, bk)
+        res = {"B": b, "M": m, "W": w, "k1_max_abs_err": e1,
+               "k2_max_abs_err": e2,
+               "k1_ms": time_ms(torch, lambda: banded_sw_cuda(read, ref,
+                                                              lens))}
+        res["k1_bound_ms"], res["k1_bound_by"] = bound(**k1_work(read, ref,
+                                                                 tb))
+        if (b, m, w) in DP_LONG:
+            res["k2h_ms"] = time_ms(torch, lambda: banded.walk_outputs(
+                tb, best, bi, bk))
+            res["k2h_single_ms"] = time_ms(torch, lambda: banded.walk_outputs(
+                tb, best, bi, bk), n=1)
+            res["k2h_bound_ms"], res["k2h_bound_by"] = bound(**k2_work(
+                torch, ck, packed=packed, header=True))
+            res.update(walk_chain_floor(torch, ck, packed))
+        log("phase1 batch", json.dumps(res))
+        out[f"B{b}_M{m}_W{w}"] = res
 
     extra = {
         "ties": (tie_reads(rng, DP_BATCH, MAIN_PATH_BUCKET, W), W),
@@ -776,6 +845,9 @@ def phase1(torch, dev):
                                     w)
         extra[f"edge_all_mismatch_W{w}"] = (
             mismatch_reads(rng, DP_BATCH, DP_SMALL_M, w), w)
+    # K1's plans by batch: either side of the threshold where they differ
+    for b, w in k1_batch_edges():
+        extra[f"batch_B{b}_W{w}"] = (synth_reads(rng, b, DP_SMALL_M, w), w)
     errs = {}
     for what, (arrays, w) in extra.items():
         read, ref, lens = on_card(arrays)
@@ -1905,6 +1977,20 @@ def phase7_kernels(torch, dev):
             ok = torch.stack([g[3] for g in got])
             if not (ok.any() and not ok.all()):
                 raise AssertionError("K7's ok rows must be mixed")
+            # the route for cards without peer access, on one card: each
+            # neighbour's edge columns copied first, read at their offset
+            before = kbuild.LAUNCHES["stencil"]
+            staged = sharded._stencil_step_cuda(shards, k, cov,
+                                                {(dev.index, dev.index)})
+            if kbuild.LAUNCHES["stencil"] != before + 1:
+                raise AssertionError("K7's staged step on one card must be "
+                                     "one launch")
+            for s_, g in zip(staged, got):
+                for a, b in zip(s_, g):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"K7's staged route differs "
+                                             f"from the in-place route at k "
+                                             f"= {k}, cov = {cov}")
     k = STENCIL_KS[0]
     step = functools.partial(sharded.sharded_stencil_cuda, shards, k,
                              STENCIL_COV)
@@ -1928,6 +2014,9 @@ def phase7_kernels(torch, dev):
         "device_ms": device_ms(ops, "stencil_step_kernel"),
         "step_ms": time_ms(torch, lambda: sharded.sharded_stencil(
             shards, k, STENCIL_COV)),
+        # the staged route (cards without peer access), on one card
+        "staged_step_ms": time_ms(torch, lambda: sharded._stencil_step_cuda(
+            shards, k, STENCIL_COV, {(dev.index, dev.index)})),
     }
     res["k7"]["bound_ms"], res["k7"]["bound_by"] = bound(
         **k7_work(length, k, MESH_SHARDS))
@@ -2497,6 +2586,12 @@ def main() -> int:
     k9_main = p7["k9"]["read_major"]
     dp_runs = [r for m, r in p1.items() if m not in ("extra", "k1_widths")] \
         + list(p1["extra"].values())
+    # the windowed walk (pitch above 1024) at the main path's bucket and at
+    # B 64 x M 4096, beside its bound and chain floor
+    walk_wide = {f"B{r['B']}_M{r['M']}_W{r['W']}": {
+        k: r[k] for k in ("k2h_ms", "k2h_single_ms", "k2h_bound_ms",
+                          "longest_walk_steps", "chain_floor_ms")}
+        for r in dp_runs if r.get("W", 0) > 1024 and "k2h_ms" in r}
     # no single PyTorch call computes any of these functions but K9's
     # (index_add_)
     kernels = [
@@ -2509,7 +2604,10 @@ def main() -> int:
          "plain_ms": main_dp["k1_plain_ms"],
          "bound_ms": main_dp["k1_bound_ms"],
          "bound_by": main_dp["k1_bound_by"], "library_ms": None,
-         "by_band_width": k1_wide},
+         "by_band_width": k1_wide,
+         "by_batch": {f"B{b}_M{m}_W{w}": {
+             k: p1[f"B{b}_M{m}_W{w}"]["k1_" + k] for k in ("ms", "bound_ms")}
+             for b, m, w in DP_K1_BATCH}},
         {"name": "walk", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/walk.cu",
          "replaces": "nanomod_tpu/resquiggle/banded.py:189",
@@ -2520,7 +2618,8 @@ def main() -> int:
          "bound_ms": main_dp["k2h_bound_ms"],
          "bound_by": main_dp["k2h_bound_by"], "library_ms": None,
          "walk_only_ms": main_dp["k2_ms"],
-         "walk_and_pack_outputs_ms": main_dp["k2_pack_ms"]},
+         "walk_and_pack_outputs_ms": main_dp["k2_pack_ms"],
+         "windowed": walk_wide},
         {"name": "battery", "route": "cuda",
          "source": "nanomod_tpu_torch/csrc/battery.cu",
          "replaces": "nanomod_tpu/stats/kernels.py:186",

@@ -439,9 +439,9 @@ int launch(const void* read, const void* ref, const void* lens, void* tb,
 //    block, one chunk ahead in registers.
 //
 // The launch plan (lanes a thread, threads bound, blocks an SM) comes from
-// W (WIDE_PLANS below; nanomod_tpu_torch/resquiggle/banded_kernel.py
-// wide_plan mirrors it).  Above 16 warps of 16 lanes the lane arrays spill
-// to local memory: slow, but bit-exact.
+// W and the batch (WIDE_PLANS below; nanomod_tpu_torch/resquiggle/
+// banded_kernel.py wide_plan mirrors it).  Above 16 warps of 16 lanes the
+// lane arrays spill to local memory: slow, but bit-exact.
 
 constexpr int WIDE_MAX_W = 32768;
 // the widest band of the narrow kernel: above it the wide kernel runs
@@ -763,27 +763,39 @@ __global__ void __launch_bounds__(MAXT, MINB)
   }
 }
 
-// Launch plans of the wide kernel: the first plan whose max_w is >= W.
-// A block holds ceil(W / (32 lp)) warps; maxt bounds its threads and minb
-// asks the compiler for registers enough to keep minb blocks an SM.  The
-// fastest plan of kernels/k1_plans.py at B 256, M 1024 (the main path's
-// bucket) at each width it timed (PERF.md, K1's row).
-// nanomod_tpu_torch/resquiggle/banded_kernel.py WIDE_PLANS is the same
-// table (tests/test_torch_wideplan.py holds the two equal).
-struct WidePlan {
-  int max_w, lp, maxt, minb;
+// Launch plans of the wide kernel by band width and batch: the first row
+// whose max_w is >= W, and of it the plan for a batch that fills the card
+// (bsz >= FULL_BATCH reads) or the one for a batch that does not.  A block
+// holds ceil(W / (32 lp)) warps; maxt bounds its threads and minb asks the
+// compiler for registers enough to keep minb blocks an SM.  The fastest
+// plan of kernels/k1_plans.py --batches at each (W, B) it timed (PERF.md,
+// K1's row).  nanomod_tpu_torch/resquiggle/banded_kernel.py WIDE_PLANS and
+// FULL_BATCH are the same table (tests/test_torch_wideplan.py holds them
+// equal).
+struct Launch {
+  int lp, maxt, minb;
 };
+struct WidePlan {
+  int max_w;
+  Launch part, full;
+};
+constexpr int FULL_BATCH = 132;  // a block for each of the H100's 132 SMs
 constexpr WidePlan WIDE_PLANS[] = {
-    {384, 2, 1024, 1},
-    {448, 4, 512, 1},
-    {512, 8, 256, 2},
-    {768, 4, 512, 1},
-    {1024, 8, 256, 2},
-    {1280, 4, 512, 1},
-    {2048, 8, 256, 2},
-    {8192, 16, 512, 1},
-    {16384, 16, 1024, 1},
-    {32768, 32, 1024, 1},
+    {384, {2, 1024, 1}, {2, 1024, 1}},
+    {449, {4, 512, 1}, {4, 512, 1}},
+    {512, {4, 512, 1}, {8, 512, 1}},
+    {513, {2, 1024, 1}, {4, 512, 1}},
+    {768, {4, 512, 1}, {4, 512, 1}},
+    {896, {4, 512, 1}, {8, 512, 1}},
+    {1024, {8, 512, 1}, {8, 512, 1}},
+    {1152, {4, 512, 1}, {4, 512, 1}},
+    {1536, {4, 512, 1}, {8, 512, 1}},
+    {2048, {8, 512, 1}, {16, 256, 1}},
+    {3072, {8, 512, 1}, {8, 512, 1}},
+    {4096, {16, 256, 1}, {16, 512, 1}},
+    {8192, {16, 512, 1}, {16, 512, 1}},
+    {16384, {16, 1024, 1}, {16, 1024, 1}},
+    {32768, {32, 1024, 1}, {32, 1024, 1}},
 };
 
 template <int LP, int MAXT, int MINB>
@@ -800,7 +812,8 @@ int launch_wide(const void* read, const void* ref, const void* lens,
   return (int)cudaGetLastError();
 }
 
-// the plan for w: WIDE_PLANS' first entry whose max_w is >= w
+// the plan for (w, bsz): of WIDE_PLANS' first row whose max_w is >= w,
+// the full batch's plan from FULL_BATCH reads, else the part batch's
 template <int I>
 int launch_planned(const void* read, const void* ref, const void* lens,
                    void* tb, void* best, void* bi, void* bk, int bsz, int m,
@@ -814,9 +827,13 @@ int launch_planned(const void* read, const void* ref, const void* lens,
                                    m, w, pitch, match, mismatch, go, ge,
                                    stream);
   }
-  return launch_wide<P.lp, P.maxt, P.minb>(read, ref, lens, tb, best, bi, bk,
-                                           bsz, m, w, pitch, match, mismatch,
-                                           go, ge, stream);
+  if (bsz >= FULL_BATCH)
+    return launch_wide<P.full.lp, P.full.maxt, P.full.minb>(
+        read, ref, lens, tb, best, bi, bk, bsz, m, w, pitch, match, mismatch,
+        go, ge, stream);
+  return launch_wide<P.part.lp, P.part.maxt, P.part.minb>(
+      read, ref, lens, tb, best, bi, bk, bsz, m, w, pitch, match, mismatch,
+      go, ge, stream);
 }
 
 // The narrow kernel, one warp a read, for w in [1, MAXW] (MAXW <= 1024):

@@ -26,9 +26,13 @@
 // read straight from the neighbour's [L] inputs, with the same selection as
 // the shard's own columns: the halo exchange becomes k loads at each edge.
 // A neighbour on another card is read over NVLink through peer access
-// (nm_enable_peer_access, called by the wrapper once per pair of cards); a
-// mesh edge has null pointers and reads as zeros with valid 0, as the
-// reference's zero-filled ppermute.  The selection is recomputed per
+// (nm_enable_peer_access, called by the wrapper once per pair of cards).
+// Where two cards cannot reach each other, the wrapper copies the
+// neighbour's k edge columns onto the reader's card first, and the
+// descriptor says at which column those copies start (Cols::first), so the
+// kernel reads them at their own offset.  A mesh edge has null pointers
+// and reads as zeros with valid 0, as the reference's zero-filled
+// ppermute.  The selection is recomputed per
 // (offset, column) from the vectors (cached in L2), which costs less than
 // a second pass over memory.
 
@@ -40,7 +44,9 @@ namespace {
 constexpr int kMaxShards = 16;
 constexpr int kThreads = 256;
 
-// one shard's [L] inputs
+// one shard's inputs: columns first .. of its [L] vectors (a neighbour's
+// edge columns staged on the reader's card start at first = L - k on the
+// left; else first = 0)
 struct Cols {
   const int* num;
   const int* cap;
@@ -48,6 +54,7 @@ struct Cols {
   const int* n2c;
   const int* pos;
   const uint8_t* valid;
+  int first;
 };
 
 struct ShardCols {
@@ -74,7 +81,7 @@ stencil_step_kernel(const __grid_constant__ StepArgs a) {
   const int src = j + off;
   const ShardCols& sh = a.shard[blockIdx.z];
   const Cols c = src < 0 ? sh.left : (src >= L ? sh.right : sh.self);
-  const int i = src < 0 ? src + L : (src >= L ? src - L : src);
+  const int i = (src < 0 ? src + L : (src >= L ? src - L : src)) - c.first;
   int p_num = 0, p_ne1 = 0, p_ne2 = 0, p_pos = 0, p_valid = 0;
   if (c.num != nullptr) {
     const int n1 = c.n1c[i], n2 = c.n2c[i];
@@ -103,11 +110,12 @@ stencil_step_kernel(const __grid_constant__ StepArgs a) {
 
 }  // namespace
 
-// cols: host array of nshards x 18 pointers, a shard's own (num, cap, n1c,
-// n2c, pos: [L] int32; valid: [L] u8), then its left and its right
-// neighbour's, null at a mesh edge; outputs d, ne1, ne2 (int32) and ok (u8)
-// of [nshards, 2k+1, L].  nshards <= 16, 2k+1 <= 65535, k <= L.
-extern "C" int nm_stencil_step(const void* const* cols, int nshards, int L,
+// cols: host array of nshards x 21 words, a shard's own (num, cap, n1c,
+// n2c, pos: int32; valid: u8; then the index of the column they start at,
+// 0), then its left and its right neighbour's (the same seven; pointers
+// null at a mesh edge); outputs d, ne1, ne2 (int32) and ok (u8) of
+// [nshards, 2k+1, L].  nshards <= 16, 2k+1 <= 65535, k <= L.
+extern "C" int nm_stencil_step(const uint64_t* cols, int nshards, int L,
                                int k, int cov, void* d, void* ne1, void* ne2,
                                void* ok, void* stream) {
   if (nshards < 0 || nshards > kMaxShards || k < 0 || k > L ||
@@ -118,13 +126,14 @@ extern "C" int nm_stencil_step(const void* const* cols, int nshards, int L,
   for (int s = 0; s < nshards; ++s) {
     Cols* dst[3] = {&a.shard[s].self, &a.shard[s].left, &a.shard[s].right};
     for (int side = 0; side < 3; ++side) {
-      const void* const* p = cols + 18 * s + 6 * side;
+      const uint64_t* p = cols + 21 * s + 7 * side;
       dst[side]->num = (const int*)p[0];
       dst[side]->cap = (const int*)p[1];
       dst[side]->n1c = (const int*)p[2];
       dst[side]->n2c = (const int*)p[3];
       dst[side]->pos = (const int*)p[4];
       dst[side]->valid = (const uint8_t*)p[5];
+      dst[side]->first = (int)p[6];
     }
   }
   a.d = (int*)d;

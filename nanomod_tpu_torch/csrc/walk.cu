@@ -269,16 +269,54 @@ __global__ void __launch_bounds__(32)
 
 
 // Pitch > 1024 (W > 1024): a tile of whole rows no longer fits, and a walk
-// touches about one byte a step along a diagonal.  So the warp stages a
-// window of WIN_ROWS rows by WIN_COLS columns around the walk's cell (rows
-// i - WIN_ROWS + 1 .. i, columns from 16-byte aligned c0, half the window
-// on each side of k) with 16-byte cp.async, and lane 0 walks inside it.
-// A step moves one row up (M, I) or one column left (D) or right (I), so a
-// walk stays at least WIN_ROWS / 2 steps in a window; when it leaves, the
-// warp flushes the codes and stages the window around the new cell.  The
-// codes go out through the same shared ring as walk_kernel's.
-constexpr int WIN_ROWS = 32;
-constexpr int WIN_COLS = 128;
+// touches about one byte a step, mostly straight up (in band coordinates an
+// M step keeps k; I and D move it by one).  So the warp stages windows of
+// WR rows by WC columns around the walk and lane 0 walks inside them:
+//
+//  * Two windows in dynamic shared memory.  The walk's row never increases
+//    and its column moves by at most one a step, so the window above the
+//    current one (rows r0 - WR .. r0 - 2 WR + 1, WC columns around the
+//    walk's k) is known well before the walk needs it: when the walk has
+//    climbed WFETCH rows of a window, the warp starts that window's copy
+//    (16-byte cp.async, one commit group) into the other slot and lane 0
+//    walks on.  When the walk leaves by the top inside the fetched
+//    columns, the warp waits for the group (long landed) and moves into
+//    it.  Only a start, or a walk that leaves by a side (or by the top
+//    outside the fetched columns), stages a window and waits for it.
+//  * Windows of 128 x 128 bytes: an M 1024 walk changes window ~8 times
+//    (32-row windows changed ~32 times, each a full trip to device memory
+//    while lane 0 waited).
+//  * Look-ahead, as walk_kernel's: the three cells the next step can reach
+//    (M: a + WC, I: a + WC + 1, D: a - 1; a window's rows go up in shared
+//    memory) are loaded one step early into one word.  Loads past a
+//    window's edge land in the other window or in the guards around the
+//    two and are never used: a step onto them leaves the window.
+//  * The codes go out through the same shared ring as walk_kernel's.
+constexpr int WR = 128;
+constexpr int WC = 128;
+constexpr int WIN = WR * WC;
+constexpr int WFETCH = WR / 2;
+constexpr int WLEAD = 16;       // below window 0: the D look-ahead
+constexpr int WTAIL = WC + 16;  // above window 1: the M and I look-aheads
+constexpr int WIDE_SMEM = WLEAD + 2 * WIN + WTAIL;
+
+// the window's first column: 16-byte aligned, about WC / 2 left of k, the
+// window inside the row's pitch (p >= WC)
+__device__ __forceinline__ int window_col(int k, int p) {
+  return min(max((k - WC / 2) & ~15, 0), p - WC);
+}
+// rows r0 .. r0 - WR + 1 (those >= 0) of read t from column c0 into dst,
+// a row every WC bytes upward; one commit group
+__device__ __forceinline__ void stage_window(uint8_t* dst, const uint8_t* t,
+                                             int r0, int c0, int p,
+                                             int lane) {
+  constexpr int PER_ROW = WC / 16;
+  const int n = min(WR, r0 + 1) * PER_ROW;
+  for (int q = lane; q < n; q += 32)
+    cp_async16(dst + 16 * q,
+               t + (size_t)(r0 - q / PER_ROW) * p + c0 + 16 * (q % PER_ROW));
+  cp_async_commit();
+}
 
 template <bool PACKED>
 __global__ void __launch_bounds__(32)
@@ -288,7 +326,7 @@ __global__ void __launch_bounds__(32)
                      const float* __restrict__ best,
                      uint8_t* __restrict__ out, int m, int w, int p,
                      int hdr) {
-  __shared__ __align__(16) uint8_t win[WIN_ROWS * WIN_COLS];
+  extern __shared__ __align__(16) uint8_t ring[];  // WIDE_SMEM bytes
   __shared__ uint8_t cbuf[CODE_BYTES];
   constexpr int PER = PACKED ? 4 : 1;
   constexpr int SH = PACKED ? 2 : 0;
@@ -300,6 +338,7 @@ __global__ void __launch_bounds__(32)
   const uint8_t* t = tb + (size_t)b * m * p;
   uint8_t* o = out + (size_t)b * (hdr + nbytes) + hdr;
   const unsigned cb = opaque_smem(cbuf);
+  const unsigned wb = opaque_smem(ring + WLEAD);  // window slot 0
 
   int i = best_i[b];
   int k = best_k[b];
@@ -316,25 +355,25 @@ __global__ void __launch_bounds__(32)
     }
   };
 
-  int r0 = -1, c0 = 0;  // the window: rows r0 - WIN_ROWS + 1 .. r0
+  // the window: rows r0 .. r0 - WR + 1 from column c0, in slot `slot`
+  // (r0 < 0: none yet); `ahead`: the window above it, from column c1, is
+  // in the other slot or on its way
+  int r0 = -1, c0 = 0, c1 = 0, slot = 0;
+  bool ahead = false;
   int s = 0;
   int flushed = 0;
   while (true) {
-    int want = 0;
+    // what the warp does next: 0 flush the codes and go on, 1 fetch the
+    // window above, 2 move into it, 3 stage a window around (i, k)
+    int act = 0;
     if (lane == 0) {
       const int s_stop = min(steps, PER * (flushed + CODE_BYTES));
-      while (s < s_stop && !done) {
-        int x;
-        if ((unsigned)i >= (unsigned)m || (unsigned)k >= (unsigned)w) {
-          // the reference's clamped step (never after K1)
-          x = t[(size_t)min(max(i, 0), m - 1) * p + min(max(k, 0), w - 1)];
-        } else if (i <= r0 && i > r0 - WIN_ROWS && k >= c0
-                   && k < c0 + WIN_COLS) {
-          x = win[(r0 - i) * WIN_COLS + (k - c0)];
-        } else {
-          want = 1;
-          break;
-        }
+      // (i, k) outside the matrix (never after K1): the reference's
+      // clamped step, read from device memory
+      while (s < s_stop && !done &&
+             ((unsigned)i >= (unsigned)m || (unsigned)k >= (unsigned)w)) {
+        const int x =
+            t[(size_t)min(max(i, 0), m - 1) * p + min(max(k, 0), w - 1)];
         const uint64_t tt = st == 0 ? T0 : (st == 1 ? T1 : T2);
         const unsigned e = (unsigned)(tt >> (4 * x)) & 15u;
         const int code = e & 3;
@@ -345,10 +384,51 @@ __global__ void __launch_bounds__(32)
         k += (code == 2) - (code == 3);
         done = code == 0 || i < 0 || k < 0 || k >= w;
       }
+      const int top = r0 - WR + 1;
+      // lane 0 stops at the fetch row until the window above is fetched
+      const int lim = ahead ? top : r0 - WFETCH + 1;
+      if (!done && s < s_stop && i <= r0 && i >= lim &&
+          (unsigned)(k - c0) < (unsigned)WC) {
+        unsigned a = wb + slot * WIN + (r0 - i) * WC + (k - c0);
+        uint64_t tt = st == 0 ? T0 : (st == 1 ? T1 : T2);
+        int x = lds_u8(a);
+        unsigned xx = lds_u8(a + WC) | (lds_u8(a + WC + 1) << 8)
+                      | (lds_u8(a - 1) << 16);
+        while (true) {
+          const unsigned e = (unsigned)(tt >> (4 * x)) & 15u;
+          const int code = e & 3;
+          const int nst = e >> 2;
+          const bool mv_m = code == 1, mv_i = code == 2;
+          a += mv_m ? WC : (mv_i ? WC + 1 : -1);
+          x = (int)__byte_perm(xx, 0u, code + 0x443F);  // byte code-1
+          tt = nst == 0 ? T0 : (nst == 1 ? T1 : T2);
+          i -= mv_m || mv_i;
+          k += (int)mv_i - (code == 3);
+          put(s, code);
+          ++s;
+          st = nst;
+          done = code == 0 || i < 0 || k < 0 || k >= w;
+          if (done || i < lim || (unsigned)(k - c0) >= (unsigned)WC ||
+              s >= s_stop)
+            break;
+          xx = lds_u8(a + WC) | (lds_u8(a + WC + 1) << 8)
+               | (lds_u8(a - 1) << 16);
+        }
+      }
+      if (!done && s < s_stop) {
+        if (i <= r0 && i >= top && (unsigned)(k - c0) < (unsigned)WC)
+          act = 1;  // at the fetch row
+        else if (ahead && i == top - 1 && (unsigned)(k - c1) < (unsigned)WC)
+          act = 2;  // out by the top, into the fetched columns
+        else
+          act = 3;
+      }
     }
     s = __shfl_sync(FULL, s, 0);
     const bool end = __shfl_sync(FULL, (int)(done || s >= steps), 0);
-    want = __shfl_sync(FULL, want, 0);
+    act = __shfl_sync(FULL, act, 0);
+    const int wi = __shfl_sync(FULL, i, 0);
+    const int wk = __shfl_sync(FULL, k, 0);
     const int full = s >> SH;
     __syncwarp();
     for (int q = flushed + lane; q < full; q += 32)
@@ -356,22 +436,28 @@ __global__ void __launch_bounds__(32)
     flushed = full;
     __syncwarp();
     if (end) break;
-    if (want) {
-      r0 = __shfl_sync(FULL, i, 0);
-      const int kc = __shfl_sync(FULL, k, 0);
-      c0 = min(max((kc - WIN_COLS / 2) & ~15, 0), p - WIN_COLS);
-      constexpr int PER_ROW = WIN_COLS / 16;
-      for (int q = lane; q < WIN_ROWS * PER_ROW; q += 32) {
-        const int row = q / PER_ROW, col = (q % PER_ROW) * 16;
-        if (r0 - row >= 0)
-          cp_async16(win + row * WIN_COLS + col,
-                     t + (size_t)(r0 - row) * p + c0 + col);
-      }
-      cp_async_commit();
+    if (act == 1) {
+      c1 = window_col(wk, p);
+      stage_window(ring + WLEAD + (slot ^ 1) * WIN, t, r0 - WR, c1, p, lane);
+      ahead = true;
+    } else if (act == 2) {
+      cp_async_wait<0>();
+      __syncwarp();
+      slot ^= 1;
+      r0 -= WR;
+      c0 = c1;
+      ahead = false;
+    } else if (act == 3) {
+      // the slot just left; a window above still in flight lands too
+      r0 = wi;
+      c0 = window_col(wk, p);
+      ahead = false;
+      stage_window(ring + WLEAD + slot * WIN, t, r0, c0, p, lane);
       cp_async_wait<0>();
       __syncwarp();
     }
   }
+  cp_async_wait<0>();
   if constexpr (PACKED) {
     if (s & 3) {
       if (lane == 0) o[flushed] = (uint8_t)(cur >> (2 * (4 - (s & 3))));
@@ -394,19 +480,19 @@ extern "C" int nm_walk(const void* tb, const void* bi, const void* bk,
   if (bsz <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const int hdr = best ? 12 : 0;
-#define NM_WALK(KERNEL, PACKED)                                            \
-  KERNEL<PACKED><<<bsz, 32, 0, st>>>(                                      \
+#define NM_WALK(KERNEL, PACKED, SMEM)                                      \
+  KERNEL<PACKED><<<bsz, 32, SMEM, st>>>(                                   \
       (const uint8_t*)tb, (const int32_t*)bi, (const int32_t*)bk,          \
       (const float*)best, (uint8_t*)out, m, w, pitch, hdr)
   if (pitch > GUARD) {
     if (packed)
-      NM_WALK(walk_wide_kernel, true);
+      NM_WALK(walk_wide_kernel, true, WIDE_SMEM);
     else
-      NM_WALK(walk_wide_kernel, false);
+      NM_WALK(walk_wide_kernel, false, WIDE_SMEM);
   } else if (packed) {
-    NM_WALK(walk_kernel, true);
+    NM_WALK(walk_kernel, true, 0);
   } else {
-    NM_WALK(walk_kernel, false);
+    NM_WALK(walk_kernel, false, 0);
   }
 #undef NM_WALK
   return (int)cudaGetLastError();

@@ -13,8 +13,12 @@ whose walk writes unpacked codes is timed with ``pack_codes2`` after it);
 ``walk_header``, the DP batch's rows as the host fetches them (K2 with the
 12-byte header where K2 writes it, else the walk and ``pack_outputs``);
 K1's wide kernel at B 256, M 1024, W 1025, 2048 and 4096 and at B 64,
-M 4096, W 2048 (``banded_sw_w*``, ``banded_sw_b64_m4096_w2048``); the
-walk at W 130 (unpacked codes) and 2048 (windows of columns);
+M 4096, W 2048 (``banded_sw_w*``, ``banded_sw_b64_m4096_w2048``), and
+where its launch plan depends on the batch (``K1_BATCH``: W 512 at B 64,
+M 4096 and at B 8, M 1024; W 449 and 3072 at B 64, M 1024; W 4096 at B
+64, M 4096); the walk at W 130 (unpacked codes), 1025,
+2048 and 4096 (the windowed walk) at B 256, M 1024, and at B 64, M 4096,
+W 2048 and 4096 (``walk_b64_m4096_w*``);
 K3 ``battery`` on a 16,384 x 128 int16 tile, counts 30..100,
 ``battery_f32`` on the same shape in f32 (rank rows only) and
 ``battery_deep`` on a 512 x 1,024 int16 tile at 645 + 645; K6
@@ -57,14 +61,24 @@ K1_WIDE = (("banded_sw_w1025", 256, 1024, 1025),
            ("banded_sw_w2048", 256, 1024, 2048),
            ("banded_sw_w4096", 256, 1024, 4096),
            ("banded_sw_b64_m4096_w2048", 64, 4096, 2048))
-WALK_WIDTHS = (("walk_w130", 130), ("walk_w2048", 2048))
+# K1 where the launch plan depends on the batch as well as the band width
+K1_BATCH = (("banded_sw_b64_m4096_w512", 64, 4096, 512),
+            ("banded_sw_b8_w512", 8, 1024, 512),
+            ("banded_sw_b64_w449", 64, 1024, 449),
+            ("banded_sw_b64_w3072", 64, 1024, 3072),
+            ("banded_sw_b64_m4096_w4096", 64, 4096, 4096))
+WALK_WIDTHS = (("walk_w130", 256, 1024, 130), ("walk_w1025", 256, 1024, 1025),
+               ("walk_w2048", 256, 1024, 2048),
+               ("walk_w4096", 256, 1024, 4096),
+               ("walk_b64_m4096_w2048", 64, 4096, 2048),
+               ("walk_b64_m4096_w4096", 64, 4096, 4096))
 K3_P, K3_CAP = 16384, 128
 K3_DEEP_P, K3_DEEP_CAP = 512, 1024
 K6_P, K6_CAP = 976, 512
 K6_KW = dict(cov=200, repeats=100, quantile_idx=25, seed=0)
 K6_LEVELS = 8         # distinct values a group and row
 K6_CAPPED = 0.96      # share of capped rows
-KERNELS = (("banded_sw",) + tuple(k[0] for k in K1_WIDE)
+KERNELS = (("banded_sw",) + tuple(k[0] for k in K1_WIDE + K1_BATCH)
            + ("walk", "walk_header") + tuple(k[0] for k in WALK_WIDTHS)
            + ("battery", "battery_f32", "battery_deep", "capped_ks",
               "stencil", "accumulate", "accumulate_read_major"))
@@ -118,8 +132,8 @@ def _inputs():
                                 axis=1)).astype(np.int32),
              rng.normal(0, 1, (reads, K9_READ_LEN)).astype(np.float32),
              rng.random((reads, K9_READ_LEN)) >= 0.1]
-    wide = [_dp_inputs(rng, b, m, w) for _, b, m, w in K1_WIDE]
-    walks = [_dp_inputs(rng, B, M, w) for _, w in WALK_WIDTHS]
+    wide = [_dp_inputs(rng, b, m, w) for _, b, m, w in K1_WIDE + K1_BATCH]
+    walks = [_dp_inputs(rng, b, m, w) for _, b, m, w in WALK_WIDTHS]
     return ([read, ref, np.full(B, M, np.int32)], k3, k3_f32, k3_deep, k6,
             k7, k9, k9_rm, wide, walks)
 
@@ -188,9 +202,9 @@ def worker(root):
                                                           milli=True),
         "capped_ks": lambda: kernels.capped_ks_d_cuda(*k6, **K6_KW),
     }
-    for (name, *_), args in zip(K1_WIDE, wide):
+    for (name, *_), args in zip(K1_WIDE + K1_BATCH, wide):
         fns[name] = lambda args=args: banded_sw_cuda(*args)
-    for (name, _), args in zip(WALK_WIDTHS, walks):
+    for (name, *_), args in zip(WALK_WIDTHS, walks):
         out = banded_sw_cuda(*args)
         fns[name] = lambda out=out: banded.walk(out[0], out[2], out[3])[0]
     try:

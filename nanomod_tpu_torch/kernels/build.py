@@ -78,8 +78,8 @@ _SIGNATURES = {
     # counts, row_index, P, repeats * cov, seed_hi, seed_lo, group, out,
     # stream
     "nm_capped_draws": [_vp, _vp, _i, _i, _u, _u, _i, _vp, _vp],
-    # cols [nshards, 3, 6] pointers (host), nshards, L, k, cov, d, ne1,
-    # ne2, ok, stream
+    # cols [nshards, 3, 7] words (host: six pointers and a first column a
+    # side), nshards, L, k, cov, d, ne1, ne2, ok, stream
     "nm_stencil_step": [_vp, _i, _i, _i, _i, _vp, _vp, _vp, _vp, _vp],
     # peer card
     "nm_enable_peer_access": [_i],
@@ -209,8 +209,9 @@ def launch(name: str, entry: str, device, *args) -> None:
 def enable_peer_access(device, peer) -> None:
     """Let CUDA card ``device`` read the memory of card ``peer`` (once a
     pair in this process; nothing to do for one card).  Raises naming both
-    cards when they cannot reach each other: a kernel never stages such
-    reads through the host."""
+    cards when they cannot reach each other (the sharded stencil asks only
+    for pairs that can, and copies the columns it needs across the
+    others)."""
     import torch
     device, peer = torch.device(device), torch.device(peer)
     pair = (device.index, peer.index)
@@ -220,8 +221,6 @@ def enable_peer_access(device, peer) -> None:
         rc = lib().nm_enable_peer_access(peer.index)
     if rc == -1:
         raise RuntimeError(f"{device} cannot read the memory of {peer} "
-                           f"(cudaDeviceCanAccessPeer is 0): the sharded "
-                           f"stencil needs peer access between neighbouring "
-                           f"cards")
+                           f"(cudaDeviceCanAccessPeer is 0)")
     check(rc, f"peer access {device} -> {peer}")
     _PEERS.add(pair)

@@ -10,7 +10,9 @@
 // WIDE_PLANS keeps the fastest at each band width.  k1p_barriers times a
 // block barrier (__syncthreads) against a cluster barrier of two blocks on
 // two SMs, with and without a read of the other block's shared memory:
-// the price, a row, of spreading one read over two SMs.
+// the price, a row, of spreading one read over two SMs.  k1p_lds_chain
+// times a chain of dependent shared-memory loads (the latency that bounds
+// K2's walk, a load a step).
 
 #include <cooperative_groups.h>
 
@@ -110,7 +112,31 @@ __global__ void __cluster_dims__(2, 1, 1)
   if (x == -1.f) clocks[0] = 0;
 }
 
+// a chain of dependent shared-memory byte loads, each at the address the
+// previous one gave (K2's walk is such a chain, a load a step): one thread,
+// iters loads, their SM clocks
+__global__ void lds_chain(int iters, long long* clocks) {
+  __shared__ uint8_t s[256];
+  s[threadIdx.x] = (uint8_t)((threadIdx.x * 37 + 11) & 255);
+  __syncthreads();
+  if (threadIdx.x) return;
+  unsigned a = (unsigned)__cvta_generic_to_shared(s);
+  unsigned x = 0;
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i)
+    asm volatile("ld.shared.u8 %0, [%1];" : "=r"(x) : "r"(a + x));
+  const long long t1 = clock64();
+  clocks[0] = t1 - t0;
+  clocks[1] = x;
+}
+
 }  // namespace
+
+// the clocks of `iters` dependent shared-memory loads (clocks[0])
+extern "C" int k1p_lds_chain(int iters, void* clocks, void* stream) {
+  lds_chain<<<1, 256, 0, (cudaStream_t)stream>>>(iters, (long long*)clocks);
+  return (int)cudaGetLastError();
+}
 
 // kind 0: block barriers, 1: cluster barriers, 2: cluster barriers with a
 // remote read; blocks of `threads` threads, `blocks` blocks (even)

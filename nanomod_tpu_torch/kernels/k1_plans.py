@@ -3,7 +3,7 @@ the library's own plan, the narrow kernel to W 1024 and, optionally,
 another checkout's K1.
 
     python3 nanomod_tpu_torch/kernels/k1_plans.py [--parent DIR] [--json OUT]
-                                                  [--crossover]
+                                                  [--crossover | --batches]
 
 ``kernels/k1_plans.cu`` (which includes ``csrc/banded_sw.cu``) is built
 alone by nvcc with the library's flags under
@@ -23,14 +23,22 @@ and 4096, and B 8), then (unless ``--crossover``) B 256,
 M 1024 (the main path's bucket) at W 1025, 1280, 1536, 2048, 3072
 and 4096; B 64, M 4096 (``tools/bench_dp_buckets.py``) at W 2048 and 4096;
 and above W 4096, where the lane arrays spill, B 16, M 512 at W 8192,
-16384 and 32768.  A plan whose outputs differ is reported, not timed, and
-the run exits 1 at its end.
+16384 and 32768.  ``--batches`` times instead the wide plans at the batch
+sizes the main path launches (``BATCHES``: a DP sub-batch is a power of
+two from 8 to 256, ``pipeline._fit_batch`` halves it, and a length bucket
+with fewer reads launches whatever it holds) at every plan row's edges
+(``BATCH_WIDTHS``), 10-launch means only: the table K1's launch plan by
+band width and batch (csrc/banded_sw.cu WIDE_PLANS, FULL_BATCH) is read
+from.  A plan whose outputs differ is reported, not timed, and the run
+exits 1 at its end.
 
 Also: each plan's registers and spills (ptxas) and the SASS instructions
 of its row loop, a row and a cell (``sass_ab.row_loop``); and the price of
 a barrier a row (``k1p_barriers``): a block barrier against a cluster
 barrier of two blocks on two SMs, with and without a read of the other
-block's shared memory, in SM clocks and ns a barrier.  Prints the card's
+block's shared memory, in SM clocks and ns a barrier; and the SM clocks of
+a dependent shared-memory load (``k1p_lds_chain``: a chain of byte loads,
+each at the address the last gave, as K2's walk steps).  Prints the card's
 name and power limit and one JSON line a shape.
 """
 
@@ -61,8 +69,21 @@ CROSSOVER = [(256, 1024, w) for w in (128, 192, 256, 257, 272, 288, 320,
        for w in (256, 257, 288, 320, 384, 448, 512, 513, 640, 768, 896,
                  1024)] \
     + [(8, 1024, w) for w in (256, 257, 320, 384, 512, 513, 768, 1024)]
+# the batches of the main path beside the card's 132 SMs: every power of
+# two from 8 to 256 and the batches around a block an SM at M 1024, and B
+# 8, 64 and 256 at M 2048 and 4096 (the longer buckets); band widths either
+# side of each plan row's edge; above 4096 (the spill range) M 1024 only
+BATCH_WIDTHS = (257, 320, 384, 385, 448, 449, 512, 513, 640, 768, 769, 896,
+                1024, 1025, 1152, 1280, 1281, 1536, 2048, 2049, 3072, 4096)
+BATCHES = [(b, 1024, w) for b in (8, 16, 32, 64, 96, 128, 160, 192, 256)
+           for w in BATCH_WIDTHS] \
+    + [(b, m, w) for m in (2048, 4096) for b in (8, 64, 256)
+       for w in BATCH_WIDTHS] \
+    + [(b, 1024, w) for b in (8, 64, 256) for w in (6144, 8192, 12288,
+                                                     16384)]
 SCORES = (2.0, -3.0, -5.0, -2.0)   # match, mismatch, gap open, extend
 BARRIER_ITERS = 4096
+LDS_ITERS = 1 << 16
 
 
 def build(parent=None):
@@ -105,6 +126,8 @@ def main(argv=None):
     ap.add_argument("--json", help="write the results here")
     ap.add_argument("--crossover", action="store_true",
                     help="only the narrow/wide crossover's shapes")
+    ap.add_argument("--batches", action="store_true",
+                    help="only the wide plans at the main path's batches")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import torch
@@ -128,6 +151,7 @@ def main(argv=None):
     plans.k1p_narrow.argtypes = k1_args
     plans.k1p_plan.argtypes = [i_, vp]
     plans.k1p_barriers.argtypes = [i_, i_, i_, i_, vp, vp]
+    plans.k1p_lds_chain.argtypes = [i_, vp, vp]
     lib = kbuild.lib()
     for dll in [libs.get("parent")]:
         if dll is not None:
@@ -160,7 +184,9 @@ def main(argv=None):
         return float(np.median(ts))
 
     results = {"card": card, "sass": sass, "shapes": [], "differs": []}
-    for b, m, w in CROSSOVER + ([] if args.crossover else SHAPES):
+    shapes = BATCHES if args.batches else \
+        CROSSOVER + ([] if args.crossover else SHAPES)
+    for b, m, w in shapes:
         read, ref, lens = (torch.from_numpy(x).to(dev)
                            for x in inputs(rng, b, m, w))
         pitch = tb_pitch(w)
@@ -182,7 +208,7 @@ def main(argv=None):
         runs = {"library": runner(lib.nm_banded_sw)}
         if "parent" in libs:
             runs["parent"] = runner(libs["parent"].nm_banded_sw)
-        if w <= 1024:
+        if w <= 1024 and not args.batches:
             runs["narrow"] = runner(plans.k1p_narrow)
         if w >= 128:
             for idx, (lp, maxt, minb) in enumerate(cands):
@@ -202,7 +228,9 @@ def main(argv=None):
                 del runs[name]
         for name, (fn, _) in runs.items():
             res["mean10_ms"][name] = time_ms(fn, 10)
-            res["single_ms"][name] = time_ms(fn, 1)
+            if not args.batches:
+                res["single_ms"][name] = time_ms(fn, 1)
+        del runs, want
         results["shapes"].append(res)
         print("shape", json.dumps(res), flush=True)
 
@@ -224,6 +252,13 @@ def main(argv=None):
             "ns_a_barrier": ms * 1e6 / BARRIER_ITERS}
     results["barriers"] = barriers
     print("barriers", json.dumps(barriers), flush=True)
+    clocks = torch.zeros(2, dtype=torch.int64, device=dev)
+    rc = plans.k1p_lds_chain(LDS_ITERS, clocks.data_ptr(), stream)
+    torch.cuda.synchronize()
+    if rc:
+        raise RuntimeError(f"lds chain kernel failed: {rc}")
+    results["lds_chain"] = {"clocks_a_load": float(clocks[0]) / LDS_ITERS}
+    print("lds_chain", json.dumps(results["lds_chain"]), flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(results, f, indent=1)

@@ -1,7 +1,8 @@
 # Port of nanomod_tpu/parallel/sharded.py: the shard_map step is a loop
 # over the mesh's shards, and the ppermute halo exchange with the stencil
 # assembly one launch of kernel K7 a card (csrc/stencil.cu), which reads the
-# neighbours' boundary columns itself (over NVLink between cards).
+# neighbours' boundary columns itself (over NVLink between cards that can
+# reach each other, else from copies of those columns on its own card).
 """Position-sharded multi-device detection.
 
 The position axis of each (chrom, strand) join is split into one
@@ -13,8 +14,9 @@ contiguous shard a device of the ('data', 'pos') mesh (parallel/mesh.py):
     combination (ref myDetect.py:383): K7 assembles each shard's [2k+1, L]
     stencil on its card, reading the k boundary columns of (selected KS
     numerator, ne1, ne2, position, valid) of its neighbours straight from
-    their inputs, one launch for every shard of a card (the plain version
-    copies the columns as halo blocks);
+    their inputs (or from copies of those k columns where two cards have
+    no peer access), one launch for every shard of a card (the plain
+    version copies the columns as halo blocks);
   * the float64 p-value transforms run on the host per shard, through the
     same stats.battery / stats.special code as the single-device path, so
     the sharded run is byte-identical to it.
@@ -140,11 +142,39 @@ def _check_stencil_shard(sh, length):
 def sharded_stencil_cuda(shards, k: int, cov: int):
     """K7 on CUDA shards: the whole step in one launch a card (a launch
     for each MAX_SHARDS_A_LAUNCH shards of a card that holds more), each
-    shard reading its neighbours' columns itself, over NVLink where a
-    neighbour lies on another card (peer access, enabled once a pair of
-    cards; raises naming both where they cannot reach each other).
+    shard reading its neighbours' columns itself: in place, over NVLink
+    where a neighbour lies on another card that this card can reach (peer
+    access, enabled once a pair of cards), else from a copy of the
+    neighbour's k edge columns on its own card (``_stencil_step_cuda``).
     Returns each shard's (d, ne1, ne2, ok) [2k+1, L] on its card, as
     sharded_stencil_plain."""
+    cards = sorted({sh[0].get_device() for sh in shards})
+    staged = {(a, b) for a in cards for b in cards
+              if a != b and not torch.cuda.can_device_access_peer(a, b)}
+    return _stencil_step_cuda(shards, k, cov, staged)
+
+
+def _staged_edge(shard, lo: int, hi: int, dev):
+    """Columns lo..hi of a shard's six vectors, copied onto card ``dev``
+    (a cross-device copy where the shard lies on another card), as the
+    seven words of a K7 column descriptor: six pointers, then lo; and the
+    tensors that hold them."""
+    ints = torch.empty((5, hi - lo), dtype=torch.int32, device=dev)
+    for row, t in zip(ints, shard[:5]):
+        row.copy_(t[lo:hi])
+    valid = shard[5][lo:hi].to(dev, copy=True)
+    words = [row.data_ptr() for row in ints] + [valid.data_ptr(), lo]
+    return words, (ints, valid)
+
+
+def _stencil_step_cuda(shards, k: int, cov: int, staged=frozenset()):
+    """K7's step, each shard reading the k edge columns of a neighbour in
+    place, except where (the shard's card, the neighbour's card) is in
+    ``staged``: there the columns are first copied onto the shard's card
+    (after its stream has waited for the neighbour's) and read at their
+    own offset.  sharded_stencil_cuda stages the pairs of cards that cannot
+    reach each other; a pair of one card stages too, so that the route
+    runs on one card."""
     length = _shard_length(shards, k)
     if (2 * k + 1) * length >= 2 ** 31 or 2 * k + 1 > 65535:
         raise ValueError("a shard's stencil must hold fewer than 2^31 "
@@ -152,25 +182,36 @@ def sharded_stencil_cuda(shards, k: int, cov: int):
     devs = [torch.device("cuda", _check_stencil_shard(sh, length))
             for sh in shards]
     nsh = len(shards)
-    ptrs = [[t.data_ptr() for t in sh] for sh in shards]
-    null = [0] * 6
-    # a shard's own six pointers, then its left and its right neighbour's
-    # (null at a mesh edge)
-    cols = [ptrs[s] + (ptrs[s - 1] if s > 0 else null)
-            + (ptrs[s + 1] if s + 1 < nsh else null) for s in range(nsh)]
     cards = {}
     for s, dev in enumerate(devs):
         cards.setdefault(dev, []).append(s)
-    # the cards each card reads from: peer access, and the reader's stream
-    # waits for the neighbour's work on those inputs
+    # the cards each card reads from: peer access where read in place, and
+    # the reader's stream waits for the neighbour's work on those inputs
     reads = {dev: {devs[n] for s in idx for n in (s - 1, s + 1)
                    if 0 <= n < nsh and devs[n] != dev}
              for dev, idx in cards.items()}
     for dev, peers in reads.items():
         for peer in peers:
-            kbuild.enable_peer_access(dev, peer)
+            if (dev.index, peer.index) not in staged:
+                kbuild.enable_peer_access(dev, peer)
             torch.cuda.current_stream(dev).wait_stream(
                 torch.cuda.current_stream(peer))
+    keep = []  # the staged copies, alive until their launch is queued
+
+    def side(s, n, lo, hi):
+        """The seven words of shard s's neighbour n: its own pointers and
+        column 0, a copy of its columns lo..hi, or nulls at a mesh edge."""
+        if not 0 <= n < nsh:
+            return [0] * 7
+        if (devs[s].index, devs[n].index) not in staged:
+            return [t.data_ptr() for t in shards[n]] + [0]
+        words, held = _staged_edge(shards[n], lo, hi, devs[s])
+        keep.append(held)
+        return words
+
+    cols = [[t.data_ptr() for t in shards[s]] + [0]
+            + side(s, s - 1, length - k, length) + side(s, s + 1, 0, k)
+            for s in range(nsh)]
     out = [None] * nsh
     rows = 2 * k + 1
     for dev, idx in cards.items():

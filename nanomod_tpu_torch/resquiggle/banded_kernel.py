@@ -9,9 +9,9 @@ W = NARROW_MAX_W (256) one warp aligns one read; a wider band runs a block
 of ceil(W / (32 LP)) warps a read, which exchange the band's boundary
 through shared memory once a row (see the kernel's source note), and
 which is the faster of the two from W 257 on (kernels/k1_plans.py).  LP,
-the lanes a thread, comes from W through the plan table WIDE_PLANS, which
-the kernel's dispatch holds too (``wide_plan`` gives a band width's
-launch).
+the lanes a thread, comes from W and the batch B through the plan table
+WIDE_PLANS and FULL_BATCH, which the kernel's dispatch holds too
+(``wide_plan`` gives a launch).
 The traceback rows are written with a pitch of W rounded up to a multiple
 of 32 bytes (``tb_pitch``), and the [B, M, W] view of them is returned; K2
 reads that pitch.  The plain version is banded.banded_sw_plain.
@@ -27,20 +27,27 @@ MAX_W = 32768  # 32 warps of 32 lanes a thread at most
 NARROW_MAX_W = 256  # one warp a read up to here (csrc/banded_sw.cu's too)
 
 # K1's launch plans above NARROW_MAX_W, the same table as csrc/banded_sw.cu
-# WIDE_PLANS: (largest W, lanes a thread, threads bound, blocks an SM
-# asked of the compiler); a band width takes the first plan whose largest
-# W is >= it.
+# WIDE_PLANS and FULL_BATCH: (largest W, the plan of a batch of fewer than
+# FULL_BATCH reads, the plan of a batch of at least FULL_BATCH), each plan
+# (lanes a thread, threads bound, blocks an SM asked of the compiler); a
+# band width takes the first row whose largest W is >= it.
+FULL_BATCH = 132
 WIDE_PLANS = (
-    (384, 2, 1024, 1),
-    (448, 4, 512, 1),
-    (512, 8, 256, 2),
-    (768, 4, 512, 1),
-    (1024, 8, 256, 2),
-    (1280, 4, 512, 1),
-    (2048, 8, 256, 2),
-    (8192, 16, 512, 1),
-    (16384, 16, 1024, 1),
-    (32768, 32, 1024, 1),
+    (384, (2, 1024, 1), (2, 1024, 1)),
+    (449, (4, 512, 1), (4, 512, 1)),
+    (512, (4, 512, 1), (8, 512, 1)),
+    (513, (2, 1024, 1), (4, 512, 1)),
+    (768, (4, 512, 1), (4, 512, 1)),
+    (896, (4, 512, 1), (8, 512, 1)),
+    (1024, (8, 512, 1), (8, 512, 1)),
+    (1152, (4, 512, 1), (4, 512, 1)),
+    (1536, (4, 512, 1), (8, 512, 1)),
+    (2048, (8, 512, 1), (16, 256, 1)),
+    (3072, (8, 512, 1), (8, 512, 1)),
+    (4096, (16, 256, 1), (16, 512, 1)),
+    (8192, (16, 512, 1), (16, 512, 1)),
+    (16384, (16, 1024, 1), (16, 1024, 1)),
+    (32768, (32, 1024, 1), (32, 1024, 1)),
 )
 # banded_sw_wide_kernel's static shared memory, bytes: the read codes of a
 # chunk (RC = 32 uint32), the [2][4][32] float row-parity slots, the best
@@ -49,16 +56,19 @@ WIDE_STATIC_SMEM = 32 * 4 + 2 * 4 * 32 * 4 + 3 * 32 * 4
 SMEM_PER_BLOCK = 232448  # an H100 block's shared memory at most, bytes
 
 
-def wide_plan(w: int) -> dict:
-    """K1's launch for a band width in (NARROW_MAX_W, MAX_W]: lanes a
-    thread, threads (ceil(W / (32 lanes)) warps), the threads bound and
-    blocks an SM of its instantiation, and its shared memory (the chunk's
-    reference codes, (lanes + 1) bytes a thread, and the static slots)."""
+def wide_plan(w: int, bsz: int) -> dict:
+    """K1's launch for a band width in (NARROW_MAX_W, MAX_W] and a batch of
+    ``bsz`` reads: lanes a thread, threads (ceil(W / (32 lanes)) warps),
+    the threads bound and blocks an SM of its instantiation, and its
+    shared memory (the chunk's reference codes, (lanes + 1) bytes a thread,
+    and the static slots)."""
     if not NARROW_MAX_W < w <= MAX_W:
         raise ValueError(f"band width {w} is not in ({NARROW_MAX_W}, "
                          f"{MAX_W}]")
-    max_w, lanes, max_threads, min_blocks = next(
-        p for p in WIDE_PLANS if w <= p[0])
+    if bsz < 1:
+        raise ValueError(f"a batch of {bsz} reads")
+    _, part, full = next(p for p in WIDE_PLANS if w <= p[0])
+    lanes, max_threads, min_blocks = full if bsz >= FULL_BATCH else part
     threads = 32 * -(-w // (32 * lanes))
     return {"lanes": lanes, "threads": threads, "warps": threads // 32,
             "max_threads": max_threads, "min_blocks": min_blocks,

@@ -13,7 +13,8 @@ import torch
 from nanomod_tpu_torch.kernels import build as kbuild
 from nanomod_tpu_torch.kernels import hardcases
 from nanomod_tpu_torch.resquiggle import banded
-from nanomod_tpu_torch.resquiggle.banded_kernel import (NARROW_MAX_W,
+from nanomod_tpu_torch.resquiggle.banded_kernel import (FULL_BATCH,
+                                                        NARROW_MAX_W,
                                                         WIDE_PLANS)
 from nanomod_tpu_torch.stats import battery, kernels
 
@@ -192,6 +193,109 @@ def test_k2_wide_start_outside_the_matrix(dev):
                        banded.walk_packed_plain(tbm, bi, bk))
 
 
+# the windowed walk's traceback cells: (M, D then D, D, I then I, I) nibbles
+# and each mix's shares of them; no stop cell, so each walk runs until it
+# leaves the band or passes row 0
+WALK_CELLS = (1, 2 | 4, 2, 3 | 8, 3)
+WALK_MIXES = {
+    "straight": (1.0, 0.0, 0.0, 0.0, 0.0),        # up to row 0
+    "mixed": (0.9, 0.01, 0.04, 0.01, 0.04),
+    "d_heavy": (0.5, 0.15, 0.15, 0.1, 0.1),       # drifts out on the left
+    "i_heavy": (0.5, 0.1, 0.1, 0.15, 0.15),       # drifts out on the right
+}
+
+
+def _walk_tb(dev, b, m, w, pitch, mix, seed):
+    """A [B, M, W] view of [B, M, pitch] rows of traceback cells drawn
+    with the shares of WALK_MIXES[mix] (the padding drawn alike), made on
+    the card a read at a time."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    share = torch.tensor(WALK_MIXES[mix], dtype=torch.float64)
+    edges = (share.cumsum(0) * 256).round().to(torch.int64)
+    lut = torch.tensor(WALK_CELLS, dtype=torch.uint8)[
+        torch.searchsorted(edges, torch.arange(256), right=True).clamp(
+            max=len(WALK_CELLS) - 1)].to(dev)
+    rows = torch.empty((b, m, pitch), dtype=torch.uint8, device=dev)
+    for r in range(b):
+        u = torch.randint(0, 256, (m, pitch), generator=g, device=dev,
+                          dtype=torch.int32)
+        rows[r] = lut[u]
+    return rows[..., :w]
+
+
+def _walk_starts(rng, dev, b, m, w):
+    """best_i, best_k: the last row, at k = 0, k = w - 1 and anywhere;
+    best scores with x.5 among them (the header's rounding)."""
+    bi = np.where(rng.random(b) < 0.75, m - 1, rng.integers(0, m, b))
+    bi[0] = m - 1
+    bk = rng.integers(0, w, b)
+    bk[0::3] = 0
+    bk[1::3] = w - 1
+    best = rng.integers(-50, 5000, b) + rng.choice([0.0, 0.5, -0.5, 0.25], b)
+    return (torch.from_numpy(bi.astype(np.int32)).to(dev),
+            torch.from_numpy(bk.astype(np.int32)).to(dev),
+            torch.from_numpy(best.astype(np.float32)).to(dev))
+
+
+def _walk_modes_equal(tbv, bi, bk, best):
+    """K2 in every mode against the plain walk: codes one a byte, four a
+    byte (where 2M+W is a multiple of 4), and the rows with the DP header
+    in the walk's own mode; one launch each."""
+    codes = banded.walk_device_plain(tbv, bi, bk)
+    before = kbuild.launch_counts()["walk"]
+    assert torch.equal(banded.walk(tbv, bi, bk, packed=False)[0], codes)
+    launches = 1
+    if codes.shape[1] % 4 == 0:
+        assert torch.equal(banded.walk(tbv, bi, bk, packed=True)[0],
+                           banded.pack_codes2(codes))
+        launches += 1
+    rows, packed = banded.walk_outputs(tbv, best, bi, bk)
+    want = banded.pack_codes2(codes) if packed else codes
+    assert torch.equal(rows, banded.pack_outputs(want, best, bi, bk))
+    assert kbuild.launch_counts()["walk"] == before + launches + 1
+    return codes
+
+
+@pytest.mark.parametrize("mix", list(WALK_MIXES))
+@pytest.mark.parametrize("w", [1025, 2048, 4096, 32768])
+def test_k2_windowed_walk_matches_plain(dev, w, mix):
+    """The windowed walk (pitch above 1024) on walks that run straight up
+    to row 0, drift across a window's side (D- and I-heavy), start at
+    k = 0, k = w - 1 and anywhere; byte-equal to the plain walk in every
+    mode."""
+    rng = np.random.default_rng(w + len(mix))
+    b, m = (4, 256) if w > 4096 else (8, 1024)
+    tbv = _walk_tb(dev, b, m, w, -(-w // 32) * 32, mix, w)
+    codes = _walk_modes_equal(tbv, *_walk_starts(rng, dev, b, m, w))
+    if mix == "straight":      # every walk from the last row reaches row 0
+        assert int((codes != 0).sum(1).max()) == m
+
+
+@pytest.mark.parametrize("w,pitch", [(1025, 2048), (2048, 4096),
+                                     (1100, 32768)])
+def test_k2_windowed_walk_pitch_above_w(dev, w, pitch):
+    """Rows whose pitch is larger than W (the window may reach the
+    padding): read at the given pitch, not copied."""
+    rng = np.random.default_rng(pitch + w)
+    tbv = _walk_tb(dev, 6, 512, w, pitch, "mixed", pitch)
+    assert banded._pitched(tbv)[1] == pitch
+    _walk_modes_equal(tbv, *_walk_starts(rng, dev, 6, 512, w))
+
+
+@pytest.mark.parametrize("w", [2048, 4096])
+def test_k2_windowed_walk_long_reads(dev, w):
+    """B 64, M 4096 (tools/bench_dp_buckets.py's bucket): K1's traceback
+    and a drifting synthetic one, each byte-equal to the plain walk."""
+    rng = np.random.default_rng(w)
+    read, ref, lens = (torch.from_numpy(x).to(dev)
+                       for x in _wide_reads(rng, 64, 4096, w))
+    tbm, best, bi, bk = banded.banded_sw(read, ref, lens)
+    _walk_modes_equal(tbm, bi, bk, best)
+    tbv = _walk_tb(dev, 64, 4096, w, w, "d_heavy", w + 1)
+    _walk_modes_equal(tbv, *_walk_starts(rng, dev, 64, 4096, w))
+
+
 WIDE_WIDTHS = [1025, 1056, 1536, 2047, 2048, 2049, 3000, 4096, 4097, 8192,
                16384, 32768]
 
@@ -265,6 +369,30 @@ def test_k1_narrow_wide_edge_ties_and_mismatch(dev, w):
         else:
             assert not got[1].any() and not got[2].any() and \
                 not got[3].any()
+
+
+# K1's rows whose plan changes with the batch: each such row's first and
+# widest band at B 1, 8, either side of FULL_BATCH and 256
+BATCH_EDGES = [(w, b) for w in sorted({
+    w for lo, (max_w, part, full) in zip(
+        [NARROW_MAX_W] + [p[0] for p in WIDE_PLANS], WIDE_PLANS)
+    if part != full for w in (lo + 1, max_w)})
+    for b in (1, 8, FULL_BATCH - 1, FULL_BATCH, FULL_BATCH + 1, 256)]
+
+
+@pytest.mark.parametrize("w,b", BATCH_EDGES)
+def test_k1_batch_plans_match_plain(dev, w, b):
+    """K1 either side of its batch threshold (the plan of a batch that
+    fills the card against the one of a batch that does not), at one read
+    and at 256: array-equal to the plain version."""
+    rng = np.random.default_rng(w * 1000 + b)
+    m = 48 if w > 8192 else 96
+    read, ref, lens = (torch.from_numpy(x).to(dev)
+                       for x in _wide_reads(rng, b, m, w))
+    got = banded.banded_sw(read, ref, lens)
+    want = banded.banded_sw_plain(read, ref, lens)
+    for name, a, c in zip(("tb", "best", "best_i", "best_k"), got, want):
+        assert torch.equal(a, c), name
 
 
 @pytest.mark.parametrize("m,w,packed", [(256, 128, True), (256, 130, False),
@@ -509,6 +637,30 @@ def test_k7_short_shards_match_plain(dev, length, k):
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("length,k,cov", [(300, 0, 0), (300, 2, 0),
+                                          (300, 2, 200), (300, 5, 30),
+                                          (4, 4, 30), (5, 3, 30)])
+def test_k7_staged_route_matches_in_place_and_plain(dev, length, k, cov):
+    """The route for cards without peer access on one card: each
+    neighbour's k edge columns copied first and read at their own offset;
+    array-equal to the in-place route and to the plain step, one launch
+    each (five shards: k up to L)."""
+    from nanomod_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(900 + length + 10 * k + cov)
+    shards = _stencil_shards(rng, dev, 5, length, cov)
+    before = kbuild.launch_counts()["stencil"]
+    in_place = sharded._stencil_step_cuda(shards, k, cov)
+    staged = sharded._stencil_step_cuda(shards, k, cov, {(dev.index,
+                                                          dev.index)})
+    assert kbuild.launch_counts()["stencil"] == before + 2
+    want = sharded.sharded_stencil_plain(
+        [tuple(t.cpu() for t in sh) for sh in shards], k, cov)
+    for s, i, w in zip(staged, in_place, want):
+        for a, b, c in zip(s, i, w):
+            assert torch.equal(a, b)
+            assert torch.equal(a.cpu(), c)
 
 
 def test_k7_step_is_one_kernel_and_nothing_else(dev):

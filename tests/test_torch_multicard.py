@@ -2,7 +2,8 @@
 
   * every kernel (K1, K2, K3, K6, K7, K9) launched on a card that is not
     the current one, against its plain version; K7 with its neighbours on
-    other cards (read through peer access);
+    other cards (read through peer access, and copied across cards first,
+    the route for cards without peer access);
   * the sharded battery and the mesh step over the cards, against one card;
   * Annotate with its DP batches dealt over the cards, and detect with its
     joins sharded over them (``n_devices``), byte-equal to one card;
@@ -109,14 +110,18 @@ def _stencil_arrays(rng, p, cov):
     return [c.astype(np.int32) for c in cols] + [np.arange(p) < p - 7]
 
 
-def _step_on(devices, arrays, k, cov):
+def _step_on(devices, arrays, k, cov, staged=None):
     """The sharded stencil step with shard s of ``arrays`` on devices[s],
-    every output on the CPU."""
+    every output on the CPU; with ``staged``, K7's route that copies the
+    neighbour columns of those pairs of cards first."""
     from nanomod_tpu_torch.parallel import sharded
     length = len(arrays[0]) // len(devices)
     shards = [tuple(torch.from_numpy(a[s * length:(s + 1) * length]).to(d)
                     for a in arrays) for s, d in enumerate(devices)]
-    out = sharded.sharded_stencil(shards, k, cov)
+    if staged is None:
+        out = sharded.sharded_stencil(shards, k, cov)
+    else:
+        out = sharded._stencil_step_cuda(shards, k, cov, staged)
     for d in set(devices):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
@@ -167,6 +172,30 @@ def test_k7_neighbours_on_other_cards_match_plain(cards, k, cov):
         for g, w in zip(got, want):
             for a, b in zip(g, w):
                 assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k,cov", [(2, 200), (5, 0)])
+def test_k7_staged_neighbours_on_other_cards_match_in_place(cards, k, cov):
+    """K7's route for cards without peer access, forced for every pair of
+    cards: each neighbour's k edge columns copied across cards onto the
+    reader's card first, one launch a card; array-equal to the in-place
+    route and to the plain step on the CPU, a shard a card and two a card
+    in turn."""
+    rng = np.random.default_rng(40 + k)
+    n = len(cards)
+    arrays = _stencil_arrays(rng, 2 * n * 4096, cov or 30)
+    every = {(a.index, b.index) for a in cards for b in cards if a != b}
+    for devices in (cards, [cards[s % n] for s in range(2 * n)]):
+        before = kbuild.launch_counts()["stencil"]
+        got = _step_on(devices, arrays, k, cov, staged=every)
+        assert kbuild.launch_counts()["stencil"] == before + n
+        in_place = _step_on(devices, arrays, k, cov)
+        want = _step_on([torch.device("cpu")] * len(devices), arrays, k,
+                        cov)
+        for g, i, w in zip(got, in_place, want):
+            for a, b, c in zip(g, i, w):
+                assert torch.equal(a, b)
+                assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("cov", [0, 40])

@@ -549,6 +549,51 @@ def test_peer_access_enabled_once_or_raises(monkeypatch, rc):
     assert card.current == torch.device("cuda", 0)
 
 
+class _CardShard:
+    """A stand-in for a shard's first tensor on CUDA card ``card``."""
+
+    def __init__(self, card):
+        self.card = card
+
+    def get_device(self):
+        return self.card
+
+
+@pytest.mark.parametrize("reach", ["all", "none", "one_way"])
+def test_stencil_stages_only_pairs_without_peer_access(monkeypatch, reach):
+    """sharded_stencil_cuda copies a neighbour's columns exactly for the
+    (reader, neighbour) pairs of cards that cudaDeviceCanAccessPeer says
+    cannot reach each other; the others read in place."""
+    can = {"all": lambda a, b: True, "none": lambda a, b: False,
+           "one_way": lambda a, b: a < b}[reach]
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", can)
+    seen = []
+    monkeypatch.setattr(sharded, "_stencil_step_cuda",
+                        lambda shards, k, cov, staged: seen.append(staged))
+    shards = [(_CardShard(c),) for c in (0, 0, 1, 2)]
+    sharded.sharded_stencil_cuda(shards, 2, 0)
+    pairs = {(a, b) for a in range(3) for b in range(3) if a != b}
+    assert seen == [{p for p in pairs if not can(*p)}]
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 3), (7, 10), (10, 10)])
+def test_staged_edge_copies_the_columns(lo, hi):
+    """_staged_edge: the columns lo..hi of a shard's six vectors copied,
+    then their pointers and the first column's index, lo."""
+    rng = np.random.default_rng(lo + hi)
+    shard = tuple(torch.from_numpy(rng.integers(0, 99, 10).astype(np.int32))
+                  for _ in range(5)) + (torch.arange(10) % 3 == 0,)
+    words, (ints, valid) = sharded._staged_edge(shard, lo, hi,
+                                                torch.device("cpu"))
+    for row, t in zip(ints, shard[:5]):
+        assert torch.equal(row, t[lo:hi])
+    assert valid.dtype == torch.bool and torch.equal(valid, shard[5][lo:hi])
+    assert words[6] == lo
+    if hi > lo:
+        assert words[:6] == [r.data_ptr() for r in ints] + [valid.data_ptr()]
+        assert valid.data_ptr() != shard[5].data_ptr()
+
+
 def test_annotate_fan_out_devices(monkeypatch):
     from nanomod_tpu_torch.resquiggle import pipeline
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
