@@ -11,8 +11,19 @@ ingests its file shard and the pools merge across ranks, or with
 ``merge_mode="sharded"`` each rank tests its own coordinate range
 (parallel/shardmerge.py).  ``make_plots`` draws the top sites
 (harness/plots.py, matplotlib; ImportError where it is missing), and
-``profile_dir`` / NANOMOD_PROFILE_DIR wraps the run in a torch.profiler
-trace (utils/observe.device_trace).
+``profile_dir`` / NANOMOD_PROFILE_DIR (``detect --profileDir DIR``) wraps
+the run in a torch.profiler trace (utils/observe.device_trace),
+``DIR/trace.rank<r>.json``: every stage below is a ``nanomod.<stage>``
+host span in it, on the clock of the card's kernels and copies, so a gap
+in the card's work reads as the stage the host was in.  The stages of a
+detect: ``ingest.list`` (the folder's listing), ``ingest`` (holding
+``ingest.read``, the native open and parse, and ``ingest.unpack``, the
+reads built), ``accumulate``, ``finalize_pools``, ``coverage_filter``,
+``test_battery`` (holding run_battery's ``battery.gather``, and a tile's
+``battery.encode_wait``, ``battery.dispatch``, ``battery.wait`` and
+``battery.finalize``), ``combine_pvalues``, ``rank``, ``save`` and
+``top_sites``.  ``host_cpu`` is no span: the process CPU seconds of the
+run beside its positions.
 """
 
 from __future__ import annotations
@@ -89,7 +100,9 @@ def ingest_group(folder: str, cfg: DetectConfig,
 
     builder = PoolBuilder()
     if files is None:
-        files = list(iter_fast5_files(folder))
+        with stage("ingest.list", unit="files") as s:
+            files = list(iter_fast5_files(folder))
+            s.add(len(files))
 
     with stage("ingest", unit="reads") as s:
         if cfg.native_ingest:
@@ -301,7 +314,8 @@ def run_detect(cfg: DetectConfig, device="cuda",
     counters go to the global Observer (reset per run); cfg.metrics_file
     also records the kernels' launch counts (one file a rank under several
     processes, metrics_path); cfg.profile_dir (or NANOMOD_PROFILE_DIR)
-    wraps the run in a torch.profiler trace of the host and the card.
+    wraps the run in a torch.profiler trace of the host and the card, in
+    which each stage is a ``nanomod.<stage>`` span (module docstring).
     Returns (table, order, sites)."""
     import time
 
@@ -316,6 +330,7 @@ def run_detect(cfg: DetectConfig, device="cuda",
     nanomod_tpu_torch.tune_malloc()
     observer().reset()
     start = time.time()
+    cpu_start = time.process_time()
     rank, world = dist.process_info()
     with device_trace(cfg.profile_dir, device):
         if world > 1 and cfg.merge_mode == "sharded":
@@ -336,13 +351,20 @@ def run_detect(cfg: DetectConfig, device="cuda",
                 with stage("save", unit="positions") as s:
                     save_sign_test(table, cfg)
                     s.add(len(table))
-            sites = top_sites(table, order, cfg.stats, cfg.rank,
-                              top_n=cfg.rank.top_n)
+            with stage("top_sites", unit="sites") as s:
+                sites = top_sites(table, order, cfg.stats, cfg.rank,
+                                  top_n=cfg.rank.top_n)
+                s.add(len(sites))
             if cfg.make_plots:
                 _plot_top_sites(table, sites, pools1, pools2, cfg, rank,
                                 world)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        # read before device_trace exports its trace, which a plain run
+        # does not do
+        observer().add("host_cpu", len(table),
+                       seconds=time.process_time() - cpu_start,
+                       unit="positions")
     report(cfg.out_level)
     if cfg.metrics_file:
         write_metrics(metrics_path(cfg.metrics_file, rank, world), device,

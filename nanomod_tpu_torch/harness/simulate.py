@@ -1,7 +1,8 @@
 # Copied from nanomod_tpu/harness/simulate.py; differs in the imports, the
 # native reader in load_group_reads, shard_list from the port's
-# parallel/dist.py (torch.distributed), and the ``device`` / ``backend``
-# arguments passed through to detect_from_pools.
+# parallel/dist.py (torch.distributed), the ``device`` / ``backend``
+# arguments passed through to detect_from_pools, and the
+# pools_from_selections stage.
 """Simulation / evaluation harness.
 
 Rebuilds the reference's three benchmarking subcommands
@@ -40,6 +41,7 @@ from nanomod_tpu_torch.detect import detect_from_pools
 from nanomod_tpu_torch.native import load_native, require
 from nanomod_tpu_torch.parallel.dist import shard_list
 from nanomod_tpu_torch.rank.ranking import top_sites
+from nanomod_tpu_torch.utils.observe import stage
 
 
 def load_group_reads(folder: str, recursive: bool = True):
@@ -190,40 +192,44 @@ def pools_from_selections(selections: Sequence[Dict]) -> Dict:
 
     Key-form selections merge WITHOUT sorting (each is already in
     canonical order; merging sorted runs is O(n)); raw-form groups fall
-    back to the full fused pack."""
-    merged = defaultdict(list)
-    for sel in selections:
-        for g, entry in sel.items():
-            merged[g].append(entry)
-    out = {}
-    for (chrom, strand), entries in sorted(merged.items()):
-        key_ok = all(e[0] == "keys" for e in entries)
-        if key_ok:
-            pmin = min(e[2] for e in entries)
-            # re-basing to the common pmin must keep every position field
-            # inside the 29-bit key budget
-            key_ok = all(
-                int(e[1][-1] >> np.uint64(35)) + (e[2] - pmin) < (1 << 29)
-                for e in entries if len(e[1]))
-        if key_ok:
-            keys = [e[1] if e[2] == pmin
-                    else e[1] + (np.uint64(e[2] - pmin) << np.uint64(35))
-                    for e in entries]
-            key = _merge_sorted_u64(keys)
-            out[(chrom, strand)] = pack_sorted_keys(chrom, strand, key, pmin)
-        else:
-            ps, vs, cs = [], [], []
-            for e in entries:
-                if e[0] == "keys":
-                    p, v, c = decode_canonical_keys(e[1], e[2])
-                else:
-                    p, v, c = e[1], e[2], e[3]
-                ps.append(p)
-                vs.append(v)
-                cs.append(c)
-            out[(chrom, strand)] = pack_observations(
-                chrom, strand, np.concatenate(ps), np.concatenate(vs),
-                np.concatenate(cs))
+    back to the full fused pack.  Stage ``pools_from_selections``
+    (positions built)."""
+    with stage("pools_from_selections", unit="positions") as stg:
+        merged = defaultdict(list)
+        for sel in selections:
+            for g, entry in sel.items():
+                merged[g].append(entry)
+        out = {}
+        for (chrom, strand), entries in sorted(merged.items()):
+            key_ok = all(e[0] == "keys" for e in entries)
+            if key_ok:
+                pmin = min(e[2] for e in entries)
+                # re-basing to the common pmin must keep every position
+                # field inside the 29-bit key budget
+                key_ok = all(
+                    int(e[1][-1] >> np.uint64(35)) + (e[2] - pmin)
+                    < (1 << 29) for e in entries if len(e[1]))
+            if key_ok:
+                keys = [e[1] if e[2] == pmin
+                        else e[1] + (np.uint64(e[2] - pmin) << np.uint64(35))
+                        for e in entries]
+                key = _merge_sorted_u64(keys)
+                out[(chrom, strand)] = pack_sorted_keys(chrom, strand, key,
+                                                        pmin)
+            else:
+                ps, vs, cs = [], [], []
+                for e in entries:
+                    if e[0] == "keys":
+                        p, v, c = decode_canonical_keys(e[1], e[2])
+                    else:
+                        p, v, c = e[1], e[2], e[3]
+                    ps.append(p)
+                    vs.append(v)
+                    cs.append(c)
+                out[(chrom, strand)] = pack_observations(
+                    chrom, strand, np.concatenate(ps), np.concatenate(vs),
+                    np.concatenate(cs))
+        stg.add(sum(p.num_positions for p in out.values()))
     return out
 
 

@@ -16,7 +16,9 @@ for the call and passes that device's current stream (CUDA refuses a
 launch to a stream of another device than the current one, and PyTorch
 leaves cuda:0 current), then raises on a non-zero code.  Every wrapper adds
 one to its entry of ``LAUNCHES`` where it launches its kernel, and nowhere
-else, so a run can show that it went through the kernels.
+else, so a run can show that it went through the kernels.  A build is the
+stage ``build.kernels`` (one a build), so a build inside a timed run shows
+in its stages and as a span of its trace.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from nanomod_tpu_torch.utils.observe import stage
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -138,7 +142,9 @@ def build() -> str:
     with open(LOCK_PATH, "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not _up_to_date(srcs):
-            _compile(srcs)
+            with stage("build.kernels", unit="builds") as s:
+                _compile(srcs)
+                s.add(1)
     return LIB_PATH
 
 

@@ -14,7 +14,9 @@ one run) never open a half-written one.  A library that is cut short all
 the same (``is_whole``), or that does not open on this machine, is rebuilt
 before it is opened.  Call ``require``
 with the libraries an entry point needs; it returns their handles and
-raises naming the first that cannot be built.
+raises naming the first that cannot be built.  A build of lib<name>.so is
+the stage ``build.<name>`` (one a build), so a build inside a timed run
+shows in its stages and as a span of its trace.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import os
 import struct
 import subprocess
 import threading
+
+from nanomod_tpu_torch.utils.observe import stage
 
 SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(SRC_DIR), "_build")
@@ -152,7 +156,9 @@ def build(name: str, src_dir: str = SRC_DIR,
         if not _up_to_date(lib, _inputs(name, src)):
             tmp = f"{lib}.{os.getpid()}.tmp"
             try:
-                _compile(name, src, tmp)
+                with stage(f"build.{name}", unit="builds") as s:
+                    _compile(name, src, tmp)
+                    s.add(1)
                 os.replace(tmp, lib)
             finally:
                 if os.path.exists(tmp):

@@ -1,4 +1,7 @@
-# Copied from nanomod_tpu/native/fast5_bind.py; only the imports differ.
+# Copied from nanomod_tpu/native/fast5_bind.py; imports and stages differ.
+# read_corrected_batch times two stages: ingest.read, the native open and
+# parse of every file on nthreads threads (files), and ingest.unpack, the
+# copy into numpy and the reads built (reads).
 """ctypes binding for the native FAST5 ingest (native/fast5_ingest.cpp).
 
 Batch-reads NanomoCorrected_000 annotations (ref layout:
@@ -17,6 +20,7 @@ import numpy as np
 
 from nanomod_tpu_torch.io.fast5 import CorrectedRead
 from nanomod_tpu_torch.native.build import load_native
+from nanomod_tpu_torch.utils.observe import stage
 
 _sig_set = False
 
@@ -65,53 +69,58 @@ def read_corrected_batch(paths: List[str],
     if nthreads <= 0:
         nthreads = min(32, os.cpu_count() or 4)
 
-    c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
-    handle = lib.f5_batch_read(c_paths, n, nthreads)
-    try:
-        n_events = np.zeros(n, np.int64)
-        total = lib.f5_batch_sizes(
-            handle, n_events.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    with stage("ingest.read", unit="files") as s:
+        c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+        handle = lib.f5_batch_read(c_paths, n, nthreads)
+        s.add(n)
+    with stage("ingest.unpack", unit="reads") as s:
+        try:
+            n_events = np.zeros(n, np.int64)
+            total = lib.f5_batch_sizes(
+                handle,
+                n_events.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
 
-        norm_mean = np.empty(total, np.float64)
-        norm_stdev = np.empty(total, np.float64)
-        ev_start = np.empty(total, np.uint32)
-        ev_length = np.empty(total, np.uint32)
-        base = np.empty(total, "S1")
-        offsets = np.empty(n + 1, np.int64)
-        map_start = np.empty(n, np.int64)
-        strands = np.empty(n, "S1")
-        chroms = np.empty(n, "S64")
+            norm_mean = np.empty(total, np.float64)
+            norm_stdev = np.empty(total, np.float64)
+            ev_start = np.empty(total, np.uint32)
+            ev_length = np.empty(total, np.uint32)
+            base = np.empty(total, "S1")
+            offsets = np.empty(n + 1, np.int64)
+            map_start = np.empty(n, np.int64)
+            strands = np.empty(n, "S1")
+            chroms = np.empty(n, "S64")
 
-        lib.f5_batch_fill(
-            handle,
-            norm_mean.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            norm_stdev.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-            ev_start.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-            ev_length.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-            base.ctypes.data_as(ctypes.c_char_p),
-            offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            map_start.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            strands.ctypes.data_as(ctypes.c_char_p),
-            chroms.ctypes.data_as(ctypes.c_char_p),
-        )
-    finally:
-        lib.f5_batch_free(handle)
+            lib.f5_batch_fill(
+                handle,
+                norm_mean.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                norm_stdev.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                ev_start.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                ev_length.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                base.ctypes.data_as(ctypes.c_char_p),
+                offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                map_start.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                strands.ctypes.data_as(ctypes.c_char_p),
+                chroms.ctypes.data_as(ctypes.c_char_p),
+            )
+        finally:
+            lib.f5_batch_free(handle)
 
-    out: List[Optional[CorrectedRead]] = []
-    for i in range(n):
-        if n_events[i] < 0:
-            out.append(None)
-            continue
-        lo, hi = offsets[i], offsets[i] + n_events[i]
-        out.append(CorrectedRead(
-            chrom=chroms[i].decode(),
-            start=int(map_start[i]),
-            strand=strands[i].decode(),
-            norm_mean=norm_mean[lo:hi],
-            norm_stdev=norm_stdev[lo:hi],
-            ev_start=ev_start[lo:hi],
-            ev_length=ev_length[lo:hi],
-            base=base[lo:hi],
-            filename=paths[i],
-        ))
+        out: List[Optional[CorrectedRead]] = []
+        for i in range(n):
+            if n_events[i] < 0:
+                out.append(None)
+                continue
+            lo, hi = offsets[i], offsets[i] + n_events[i]
+            out.append(CorrectedRead(
+                chrom=chroms[i].decode(),
+                start=int(map_start[i]),
+                strand=strands[i].decode(),
+                norm_mean=norm_mean[lo:hi],
+                norm_stdev=norm_stdev[lo:hi],
+                ev_start=ev_start[lo:hi],
+                ev_length=ev_length[lo:hi],
+                base=base[lo:hi],
+                filename=paths[i],
+            ))
+        s.add(n - int((n_events < 0).sum()))
     return out

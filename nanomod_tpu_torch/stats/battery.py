@@ -24,6 +24,7 @@ import torch
 from nanomod_tpu_torch.config import StatConfig
 from nanomod_tpu_torch.device import resolve_device, to_device
 from nanomod_tpu_torch.stats import kernels, special
+from nanomod_tpu_torch.utils.observe import stage
 
 BACKENDS = ("device", "host")
 
@@ -452,6 +453,14 @@ def run_battery(
     index: a caller holding rows [off, off + P) of a larger join draws the
     subsamples the whole join draws for them.  ``idx1``/``idx2`` gather
     battery row r from pool row idx*[r].
+
+    The device backend records its stages on the calling thread (a
+    profiler's trace sees only that thread): ``battery.gather`` (the rows
+    gathered, bytes), and a tile's ``battery.encode_wait`` (waiting for its
+    encode, or the encode itself with one tile), ``battery.dispatch`` (the
+    launches and the copy back started; the encoded tiles' bytes),
+    ``battery.wait`` (the card's result awaited) and ``battery.finalize``
+    (the float64 statistics, positions).
     """
     p_total = len(counts1)
     _check_i32_bounds(counts1, counts2)
@@ -467,10 +476,14 @@ def run_battery(
                 "failed to load, or the pools are not int16/float32")
         return res
     device = resolve_device(device)
-    if idx1 is not None:
-        values1 = values1[idx1]
-    if idx2 is not None:
-        values2 = values2[idx2]
+    if idx1 is not None or idx2 is not None:
+        with stage("battery.gather", unit="bytes") as s:
+            if idx1 is not None:
+                values1 = values1[idx1]
+                s.add(values1.nbytes)
+            if idx2 is not None:
+                values2 = values2[idx2]
+                s.add(values2.nbytes)
     out = {
         k: np.empty(p_total, dtype=np.float64)
         for k in ("stu", "pu", "stt", "pt", "stks", "pks")
@@ -502,43 +515,51 @@ def run_battery(
         """Launch the battery for one encoded tile and start the
         non-blocking copy of its packed result back to pinned memory."""
         lo, hi, n1, n2, v1d, cn1d, v2d, cn2d = enc
-        is_milli = v1d.dtype == torch.int16 and v2d.dtype == torch.int16
-        if is_milli:
-            comp = kernels.battery_components_packed_milli(
-                v1d, cn1d, v2d, cn2d)
-        else:
-            comp = kernels.battery_components_packed(v1d, cn1d, v2d, cn2d)
-        cap = None
-        if cov > 0 and bool(((n1 > cov) | (n2 > cov)).any()):
-            # the row index keys the draws per absolute row, so they do not
-            # depend on tile_positions
-            row_index = to_device(np.arange(
-                row_offset + lo, row_offset + lo + len(cn1d),
-                dtype=np.int32), device)
-            cap = kernels.capped_ks_d(
-                v1d, cn1d, v2d, cn2d, row_index, cov=cov,
-                repeats=cfg.downsampling, quantile_idx=_quantile_idx(cfg),
-                seed=cfg.downsampling_seed)
-        event = None
-        if on_cuda:
-            comp, cap = (None if t is None else _to_pinned(t)
-                         for t in (comp, cap))
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
+        with stage("battery.dispatch", unit="bytes") as s:
+            s.add(sum(t.nbytes for t in (v1d, cn1d, v2d, cn2d)))
+            is_milli = v1d.dtype == torch.int16 and v2d.dtype == torch.int16
+            if is_milli:
+                comp = kernels.battery_components_packed_milli(
+                    v1d, cn1d, v2d, cn2d)
+            else:
+                comp = kernels.battery_components_packed(v1d, cn1d, v2d,
+                                                         cn2d)
+            cap = None
+            if cov > 0 and bool(((n1 > cov) | (n2 > cov)).any()):
+                # the row index keys the draws per absolute row, so they do
+                # not depend on tile_positions
+                row_index = to_device(np.arange(
+                    row_offset + lo, row_offset + lo + len(cn1d),
+                    dtype=np.int32), device)
+                cap = kernels.capped_ks_d(
+                    v1d, cn1d, v2d, cn2d, row_index, cov=cov,
+                    repeats=cfg.downsampling,
+                    quantile_idx=_quantile_idx(cfg),
+                    seed=cfg.downsampling_seed)
+            event = None
+            if on_cuda:
+                comp, cap = (None if t is None else _to_pinned(t)
+                             for t in (comp, cap))
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(device))
         return lo, hi, n1, n2, comp, cap, event, is_milli
 
     def finalize(rec):
         """Wait for one tile's result + host float64 finalization."""
         lo, hi, n1, n2, comp, cap, event, is_milli = rec
-        if event is not None:
-            event.synchronize()
-        cols = finalize_packed(comp.numpy(), hi - lo, n1, n2,
-                               None if cap is None else cap.numpy(), cov,
-                               is_milli, want_mstd)
-        for k in ("stu", "pu", "stt", "pt", "stks", "pks"):
-            out[k][lo:hi] = cols[k]
-        if want_mstd:
-            mstd[lo:hi] = cols["mstd"]
+        with stage("battery.wait", unit="tiles") as s:
+            if event is not None:
+                event.synchronize()
+            s.add(1)
+        with stage("battery.finalize", unit="positions") as s:
+            cols = finalize_packed(comp.numpy(), hi - lo, n1, n2,
+                                   None if cap is None else cap.numpy(), cov,
+                                   is_milli, want_mstd)
+            for k in ("stu", "pu", "stt", "pt", "stks", "pks"):
+                out[k][lo:hi] = cols[k]
+            if want_mstd:
+                mstd[lo:hi] = cols["mstd"]
+            s.add(hi - lo)
 
     max_inflight = 8
     if len(ranges) > 1:
@@ -556,7 +577,10 @@ def run_battery(
                     enc_futs.append(pool.submit(encode, next(it)))
                     submitted += 1
                 if enc_futs:
-                    pending.append(dispatch(enc_futs.popleft().result()))
+                    with stage("battery.encode_wait", unit="tiles") as s:
+                        enc = enc_futs.popleft().result()
+                        s.add(1)
+                    pending.append(dispatch(enc))
                 if (len(pending) >= max_inflight
                         or (not enc_futs and pending)):
                     finalize(pending.popleft())
@@ -566,6 +590,8 @@ def run_battery(
             pool.shutdown(wait=True, cancel_futures=True)
     else:
         for rg in ranges:
-            finalize(dispatch(encode(rg)))
-
+            with stage("battery.encode_wait", unit="tiles") as s:
+                enc = encode(rg)
+                s.add(1)
+            finalize(dispatch(enc))
     return TestResult(**out, mstd=mstd)

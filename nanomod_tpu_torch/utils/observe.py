@@ -1,5 +1,7 @@
-# Copied from nanomod_tpu/utils/observe.py; differs in the imports and in
-# device_trace, which wraps torch.profiler instead of jax.profiler.
+# Copied from nanomod_tpu/utils/observe.py; differs in the imports, in
+# device_trace, which wraps torch.profiler instead of jax.profiler, in
+# stage(), which also opens a profiler span while a profiler records and
+# times on the monotonic clock, and has no vlog or to_json.
 """Tracing, per-stage throughput counters and gated logging.
 
 The reference's observability is ad-hoc ``time.time()`` deltas printed
@@ -11,13 +13,23 @@ first-class: every pipeline stage records wall time and item counts into an
 and the whole run can be wrapped in a ``torch.profiler`` trace of the host
 and the card for Perfetto / chrome://tracing / TensorBoard inspection.
 
+While a profiler records, each stage is also a span of the trace, named
+``nanomod.<stage>`` (a ``user_annotation`` event, nested as the stages
+nest), on the same clock as the card's kernels and copies.  So a trace
+written by ``detect --profileDir DIR`` (or NANOMOD_PROFILE_DIR, or any
+``torch.profiler.profile`` around the call) shows which stage the host was
+in while the card sat idle.  Only spans opened on the thread that started
+the profiler appear in its trace: work on a pool's threads shows as the
+calling thread's wait for it.  With no profiler a stage makes no torch
+call.
+
 Usage::
 
     with stage("ingest", unit="reads") as s:
         ...
         s.add(n_reads)
     report(out_level)                      # gated human-readable summary
-    observer().to_json("metrics.json")     # machine-readable metrics
+    observer().snapshot()                  # machine-readable metrics
 
     with device_trace("/tmp/trace", device):   # or NANOMOD_PROFILE_DIR=...
         run_detect(cfg, device)
@@ -26,8 +38,8 @@ Usage::
 from __future__ import annotations
 
 import contextlib
-import json
 import os
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -60,6 +72,16 @@ class _StageHandle:
         self.n += int(n)
 
 
+def _profiler():
+    """torch's autograd profiler module while a profiler records, else
+    None: a dict lookup and an attribute read, so that a stage makes no
+    torch call when no profiler records (a ``record_function`` costs
+    several times a stage's own bookkeeping even then) and this module
+    imports without torch."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
+
+
 class Observer:
     """Thread-safe registry of per-stage wall time + item counts."""
 
@@ -67,11 +89,18 @@ class Observer:
         self._stages: Dict[str, StageStats] = {}
         self._order: List[str] = []
         self._lock = threading.Lock()
-        self.started = time.time()
 
     @contextlib.contextmanager
     def stage(self, name: str, unit: str = "items"):
-        t0 = time.time()
+        """Time the block on the monotonic clock (``time.perf_counter``)
+        into stage ``name``; while a torch profiler records, the block is
+        also the span ``nanomod.<name>`` of its trace."""
+        prof = _profiler()
+        span = None
+        if prof is not None:
+            span = prof.record_function(f"nanomod.{name}")
+            span.__enter__()
+        t0 = time.perf_counter()
         with self._lock:
             st = self._stages.get(name)
             if st is None:
@@ -81,14 +110,19 @@ class Observer:
         try:
             yield h
         finally:
-            dt = time.time() - t0
+            dt = time.perf_counter() - t0
             with self._lock:
                 st.seconds += dt
                 st.items += h.n
                 st.calls += 1
+            if span is not None:
+                span.__exit__(None, None, None)
 
     def add(self, name: str, items: int, seconds: float, unit: str = "items"):
-        """Record a stage measured externally."""
+        """Record a stage measured externally; it is no span of a trace.
+        Its seconds need not be wall time: ``host_cpu`` holds the process
+        CPU seconds of a whole detect (``time.process_time``: user and
+        system time of all threads), beside the positions tested."""
         with self._lock:
             st = self._stages.get(name)
             if st is None:
@@ -127,21 +161,10 @@ class Observer:
         print(text)
         return text
 
-    def to_json(self, path: str):
-        payload = {
-            "wall_seconds": round(time.time() - self.started, 4),
-            "stages": self.snapshot(),
-        }
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        with open(path, "w") as f:
-            json.dump(payload, f, indent=2, sort_keys=True)
-        return path
-
     def reset(self):
         with self._lock:
             self._stages.clear()
             self._order.clear()
-            self.started = time.time()
 
 
 _global = Observer()
@@ -167,7 +190,8 @@ def device_trace(out_dir: Optional[str] = None, device=None):
     a no-op.  Records the host's activity always and the card's (kernels,
     copies) when `device` is a CUDA device, and writes one Chrome trace a
     process, ``trace.rank<r>.json`` in `out_dir` (r is the
-    torch.distributed rank, 0 without a process group).  The block should
+    torch.distributed rank, 0 without a process group), in which every
+    stage of the block is a ``nanomod.<stage>`` span.  The block should
     end by synchronizing the card, so that its last kernels are in the
     trace."""
     out_dir = out_dir or os.environ.get("NANOMOD_PROFILE_DIR")
@@ -186,10 +210,3 @@ def device_trace(out_dir: Optional[str] = None, device=None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(out_dir, f"trace.rank{rank}.json"))
-
-
-def vlog(cfg_level: int, level: int, msg: str):
-    """Gated print: emit when the message level clears the configured gate
-    (mirrors the reference's ``moptions['outLevel']<=...`` checks)."""
-    if level >= cfg_level:
-        print(msg)

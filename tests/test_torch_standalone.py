@@ -4,6 +4,7 @@ sources and their binds), and those copies must not drift from the
 reference.  Each copy is held to its source here on seeded inputs, and the
 port's native loader builds only into nanomod_tpu_torch/_build/."""
 
+import ast
 import dataclasses
 import filecmp
 import glob
@@ -199,11 +200,49 @@ def test_loader_builds_into_the_port_build_dir(tmp_path, monkeypatch):
     assert _snapshot(REF_NATIVE) == before
 
 
-COPY_LINE = re.compile(r"# Copied from (\S+); only the imports differ\.")
+COPY_LINE = re.compile(
+    r"# Copied from (\S+); (?:only the imports|imports and stages) differ\.")
 # copies whose imports are not a rename of the reference's (seed.py
 # imports the port's own native loader): compared with every line naming
 # nanomod_tpu dropped on both sides
 LINE_RULE = ("resquiggle/seed.py",)
+# copies that also time stages: compared as syntax trees (comments and
+# line breaks aside) after each ``with stage(...) as s:`` block is replaced
+# by its body less its ``s.add(...)`` calls and the ``stage`` import is
+# dropped
+STAGE_RULE = ("native/fast5_bind.py",)
+
+
+class _Unstage(ast.NodeTransformer):
+    """Undoes the port's stages and renames its imports back to the
+    reference's package."""
+
+    def visit_ImportFrom(self, node):
+        if node.module == "nanomod_tpu_torch.utils.observe":
+            return None
+        node.module = re.sub(r"^nanomod_tpu_torch\.", "nanomod_tpu.",
+                             node.module or "")
+        return node
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        (item,) = node.items
+        call = item.context_expr
+        if not (isinstance(call, ast.Call)
+                and getattr(call.func, "id", None) == "stage"):
+            return node
+        name = item.optional_vars.id
+
+        def counts(st):
+            return (isinstance(st, ast.Expr) and isinstance(st.value, ast.Call)
+                    and isinstance(st.value.func, ast.Attribute)
+                    and st.value.func.attr == "add"
+                    and getattr(st.value.func.value, "id", None) == name)
+        return [st for st in node.body if not counts(st)]
+
+
+def _unstaged(port_text):
+    return ast.dump(_Unstage().visit(ast.parse(port_text)))
 
 
 def _verbatim_copies():
@@ -233,13 +272,16 @@ def test_verbatim_copies_are_found():
 def test_verbatim_copy_equals_its_source(rel):
     """A copy is its source's text after its first line, with ``from
     nanomod_tpu.`` imports renamed ``from nanomod_tpu_torch.`` (for the
-    copies of LINE_RULE: with the lines naming nanomod_tpu dropped), so a
+    copies of LINE_RULE: with the lines naming nanomod_tpu dropped; of
+    STAGE_RULE: its source's syntax tree once its stages are undone), so a
     fix in the reference that is not carried to its copy fails here."""
     with open(os.path.join(ROOT, COPIES[rel])) as f:
         ref = f.read()
     with open(os.path.join(ROOT, "nanomod_tpu_torch", rel)) as f:
         port = f.read().split("\n", 1)[1]
-    if rel in LINE_RULE:
+    if rel in STAGE_RULE:
+        assert _unstaged(port) == ast.dump(ast.parse(ref))
+    elif rel in LINE_RULE:
         def drop(text):
             return [ln for ln in text.splitlines() if "nanomod_tpu" not in ln]
         assert drop(port) == drop(ref)
